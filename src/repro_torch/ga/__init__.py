@@ -15,6 +15,16 @@
                                                `gens_per_epoch` generations
                                                a launch; bit-identical to
                                                reference
+    islands        plain PyTorch     island    ring migration between
+                                     ring      `migrate_every`-generation
+                                               blocks; lut or arith
+    fused-islands  CUDA kernels      island    epoch plan: K1 with the ring
+                   K1, K2, K3        ring      between launches (gridded),
+                                               K2 with the ring inside
+                                               (resident), K3 passes with
+                                               the splice between
+                                               (streamed); bit-identical to
+                                               islands
     =============  ================  ========  ===========================
 
 Runs go to the card unless `EngineOptions(device="cpu")` asks for the CPU.
@@ -30,8 +40,9 @@ from repro_torch.ga.operators import (CROSSOVER, MUTATION, PAPER_PIPELINE,
                                       make_generation, register_crossover,
                                       register_mutation, register_selection)
 from repro_torch.ga.options import EngineOptions, resolve_options
-from repro_torch.ga.telemetry import (TELEMETRY_VERSION, ReplicaStats,
-                                      RunTelemetry, TopologyInfo)
+from repro_torch.ga.telemetry import (TELEMETRY_VERSION, PlanInfo,
+                                      ReplicaStats, RunTelemetry,
+                                      TopologyInfo)
 from repro_torch.ga.backends import (BACKENDS, EXECUTORS, TOPOLOGIES, Backend,
                                      Executor, Segment, Topology)
 from repro_torch.ga.engine import (BackendUnsupported, Engine, EngineResult,
@@ -44,7 +55,7 @@ __all__ = [
     "Engine", "EngineResult", "solve", "resolve_backend",
     "capability_matrix", "BackendUnsupported",
     "EngineOptions", "resolve_options",
-    "RunTelemetry", "TopologyInfo", "ReplicaStats",
+    "RunTelemetry", "PlanInfo", "TopologyInfo", "ReplicaStats",
     "TELEMETRY_VERSION",
     "BACKENDS", "Backend", "Segment",
     "EXECUTORS", "TOPOLOGIES", "Executor", "Topology",

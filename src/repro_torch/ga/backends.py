@@ -12,16 +12,26 @@ An **executor** advances a stack of populations a block of generations:
              Bit-identical to `reference` (state and best; the trajectory
              coarsens to one sample per launch when gens_per_epoch > 1).
 
-A **topology** owns population layout and the epoch loop:
+A **topology** owns population layout, the epoch loop and migration:
 
-  single     one population (or `n_repeats` stacked replicas, replica r
-             seeded `seed + r`), no migration; a segment is one executor
-             block.
+  single       one population (or `n_repeats` stacked replicas, replica r
+               seeded `seed + r`), no migration; a segment is one executor
+               block.
+  island_ring  `n_islands` populations; every `migrate_every` generations
+               the best individual of each island replaces the worst of
+               the next (`repro_torch.core.islands.migrate_ring`).
+               `n_repeats` replicas stack OUTSIDE the island axis ([R, I,
+               ...]).  With the fused executor an epoch planner picks the
+               launch shape (see `IslandRingTopology`): the ring between
+               K1 launches (gridded), inside the K2 kernel (resident), or
+               between K3 passes (streamed) — all bit-identical.
 
 The registry exposes the compositions under the JAX package's names:
 
-  reference  = reference × single
-  fused      = fused     × single
+  reference      = reference × single
+  fused          = fused     × single
+  islands        = reference × island_ring
+  fused-islands  = fused     × island_ring
 
 Each backend implements `supports(spec)` (capability check → reason string
 or None), `init()` (backend-native state) and `segment(state, gens)`
@@ -39,9 +49,10 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import ga as G
+from repro_torch.core import islands as ISL
 from repro_torch.ga import operators as OPS
 from repro_torch.ga import telemetry as RT
-from repro_torch.ga.options import resolve_options
+from repro_torch.ga.options import plan_mode, resolve_options
 from repro_torch.ga.spec import GASpec
 from repro_torch.kernels import ga_step as K
 
@@ -71,6 +82,16 @@ def _stack_states(cfg: G.GAConfig, n_replicas: int, device) -> G.GAState:
     integers."""
     return G.init_states(cfg, [cfg.seed + r for r in range(n_replicas)],
                          device=device)
+
+
+def _stack_island_replicas(icfg: ISL.IslandConfig, n_replicas: int,
+                           device) -> G.GAState:
+    """[R, I, ...] stack: replica r re-seeds the island seed stream with
+    `seed + r`, so replica 0 reproduces the n_repeats=1 island run."""
+    return G.stack_states([ISL.init_islands_fast(
+        dataclasses.replace(icfg, ga=dataclasses.replace(
+            icfg.ga, seed=icfg.ga.seed + r)), device=device)
+        for r in range(n_replicas)])
 
 
 class Backend:
@@ -243,11 +264,16 @@ EXECUTORS: Dict[str, type] = {
 class Topology:
     name = "?"
 
-    def __init__(self, spec: GASpec, executor: Executor, *, device):
+    def __init__(self, spec: GASpec, executor: Executor, *, device,
+                 plan_override=None, stream_tile_islands=None):
         self.spec = spec
         self.cfg = spec.ga_config()
         self.executor = executor
         self.device = device
+        # a forced epoch mode and a pinned streamed tile; only the
+        # island_ring planner reads them — single has one launch shape
+        self.plan_override = plan_override
+        self.stream_tile_islands = stream_tile_islands
 
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
@@ -269,8 +295,8 @@ class SingleTopology(Topology):
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
         if spec.effective_topology != "single":
-            return ("n_islands > 1: the island ring is not ported yet; "
-                    "run one population (n_islands=1)")
+            return ("n_islands > 1; use an island_ring backend "
+                    "('islands' / 'fused-islands')")
         return None
 
     def _solo(self) -> bool:
@@ -305,8 +331,270 @@ class SingleTopology(Topology):
                        traj_mean=tm.mean(axis=0), gens=gens, telemetry=tele)
 
 
-TOPOLOGIES: Dict[str, type] = {SingleTopology.name: SingleTopology}
+class IslandRingTopology(Topology):
+    """`n_islands` populations with ring migration every `migrate_every`
+    generations.  Replicas stack OUTSIDE the island axis ([R, I, ...]; [I,
+    ...] when n_repeats == 1).
 
+    The epoch plan (`_epoch_plan`) picks the launch shape from
+    `kernels.ga_step.epoch_mode_candidates`, whose feasibility test is the
+    card's (one island a thread block, a ring of at most MAX_CLUSTER
+    islands a cluster):
+
+      gridded        always feasible: an executor block of `migrate_every`
+                     generations over the flattened [R * I] stack (K1
+                     launches on fused), then the migration fitness and
+                     `islands.migrate_ring` in PyTorch;
+      resident       (fused, ring, gens_per_epoch >= migrate_every, I <= 8)
+                     one K2 launch folds gens_per_epoch // migrate_every
+                     whole intervals, the ring inside the kernel;
+      resident-free  (fused, migration="none") one K2 launch without a ring
+                     folds the whole gens_per_epoch;
+      streamed       (fused, resident refused) k K3 passes a launch, the
+                     ring splice in PyTorch between passes.
+
+    candidates[0] is the heuristic (`plan_source: "heuristic"`); a
+    `plan_override` picks another feasible mode (`"forced"`) or raises.
+    Every plan is bit-identical in state and best tracking; plans that fold
+    several intervals a launch coarsen the trajectory to one sample a
+    launch."""
+
+    name = "island_ring"
+
+    def __init__(self, spec: GASpec, executor: Executor, *, device,
+                 plan_override=None, stream_tile_islands=None):
+        super().__init__(spec, executor, device=device,
+                         plan_override=plan_override,
+                         stream_tile_islands=stream_tile_islands)
+        self.icfg = ISL.IslandConfig(ga=self.cfg, n_islands=spec.n_islands,
+                                     migrate_every=spec.migrate_every)
+        self.plan = self._epoch_plan()
+
+    def _epoch_plan(self) -> Dict[str, Any]:
+        spec = self.spec
+        cands = K.epoch_mode_candidates(
+            self.cfg, spec.n_islands, executor=self.executor.name,
+            migration=spec.migration, gens_per_epoch=spec.gens_per_epoch,
+            migrate_every=spec.migrate_every)
+        want = plan_mode(self.plan_override)
+        if want is None:
+            plan = dict(cands[0], plan_source="heuristic")
+        else:
+            plan = next((dict(c, plan_source="forced") for c in cands
+                         if c["mode"] == want), None)
+            if plan is None:
+                hint = (" — streamed is only offered when the resident "
+                        "epoch does not fit the card (this spec fits "
+                        "resident)" if want == "streamed" else "")
+                raise ValueError(
+                    f"plan_override mode {want!r} is not feasible for this "
+                    f"spec (candidates: {[c['mode'] for c in cands]})"
+                    + hint)
+        n, v = self.cfg.n, self.cfg.v
+        if plan["mode"] == "streamed":
+            if self.stream_tile_islands is not None:
+                t = int(self.stream_tile_islands)
+                if spec.n_islands % t:
+                    raise ValueError(
+                        f"stream_tile_islands={t} is not a feasible tile: "
+                        "it must divide the island count "
+                        f"{spec.n_islands}")
+                plan["tile_islands"] = t
+            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v)
+        elif plan["mode"].startswith("resident"):
+            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v)
+        elif self.executor.name == "fused":
+            plan["smem_estimate_bytes"] = K.smem_bytes(n, v)
+        return plan
+
+    @staticmethod
+    def supports(spec: GASpec) -> Optional[str]:
+        if spec.topology == "single":
+            return "spec pins topology='single'; use a single backend"
+        return None
+
+    def init(self):
+        if self.spec.n_repeats > 1:
+            return _stack_island_replicas(self.icfg, self.spec.n_repeats,
+                                          self.device)
+        return ISL.init_islands_fast(self.icfg, device=self.device)
+
+    # ---- runners: state -> (state', best_y, best_x, traj_mean) ----------
+    # best_* hold each island's best of every migration interval the launch
+    # ran ([K, R?, I]); traj_mean the final fitness means ([R?, I]).  The
+    # fused runners see the stack as [G, I, ...] replica groups.
+
+    def _grouped(self, states: G.GAState) -> G.GAState:
+        if self.spec.n_repeats > 1:
+            return states
+        return G.GAState(*(t.unsqueeze(0) for t in states))
+
+    def _ungrouped(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t if self.spec.n_repeats > 1 else t.select(dim, 0)
+
+    def _gridded_runner(self):
+        """One epoch: an executor block of `migrate_every` generations over
+        the flattened [R * I] stack, then the ring on the final fitness."""
+        blk = self.executor.block(self.icfg.migrate_every)
+        fit, mini = self.executor.fit, self.spec.minimize
+        migrate = self.spec.migration == "ring"
+
+        def epoch(states):
+            lead = states.x.shape[:-2]
+            flat = G.GAState(*(t.reshape((-1,) + t.shape[len(lead):])
+                               for t in states))
+            flat, by, bx, _tb, tm = blk(flat)
+            states = G.GAState(*(t.reshape(lead + t.shape[1:])
+                                 for t in flat))
+            if migrate:
+                states, _ex, _ey = ISL.migrate_ring(states, fit(states.x),
+                                                    minimize=mini)
+            return (states, by.reshape((1,) + lead),
+                    bx.reshape((1,) + lead + (-1,)), tm.reshape(lead + (-1,)))
+
+        return epoch
+
+    def _resident_runner(self, k: int, *, migrate: bool = True):
+        """ONE K2 launch: k whole intervals with the ring inside the kernel,
+        or (migrate=False, the resident-free mode) k generations — as whole
+        intervals when they divide k, so the best folds as `islands`
+        samples it."""
+        e = self.icfg.migrate_every
+        if migrate:
+            intervals = k
+        elif k % e == 0:
+            intervals = k // e
+        else:
+            e, intervals = k, 1
+        prog, sq = self.spec.program(), self._ungrouped
+
+        def launch(states):
+            g = self._grouped(states)
+            x, sel, cross, mut, y, by, bx = K.ga_epoch_kernel(
+                g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
+                program=prog, migrate_every=e, intervals=intervals,
+                migrate=migrate)
+            state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
+                              states.k + e * intervals)
+            return (state, sq(by, 1), sq(bx, 1),
+                    sq(torch.mean(y, dim=-1)))
+
+        return launch
+
+    def _streamed_runner(self, k: int):
+        """k K3 passes, one interval each; between passes the elites,
+        shifted by one island, splice into the worst slots (the rule set of
+        `ring_migrate_stack`, split around the kernel)."""
+        e, tile = self.icfg.migrate_every, self.plan["tile_islands"]
+        migrate = self.spec.migration == "ring"
+        prog, sq = self.spec.program(), self._ungrouped
+
+        def launch(states):
+            g = self._grouped(states)
+            x, sel, cross, mut = g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr
+            bys, bxs = [], []
+            for _ in range(k):
+                outs = K.ga_streamed_epoch_kernel(
+                    x, sel, cross, mut, cfg=self.cfg, program=prog,
+                    migrate_every=e, tile_islands=tile, migrate=migrate)
+                x, sel, cross, mut, ymig, by, bx = outs[:7]
+                if migrate:
+                    elite, widx = outs[7:]
+                    x = ISL.splice_at(x, widx, torch.roll(elite, 1, dims=1))
+                bys.append(by)
+                bxs.append(bx)
+            state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
+                              states.k + k * e)
+            return (state, sq(torch.stack(bys), 1), sq(torch.stack(bxs), 1),
+                    sq(torch.mean(ymig, dim=-1)))
+
+        return launch
+
+    def _schedule(self, epochs: int):
+        """The runners of one segment and the generations a trajectory
+        sample stands for.  Every plan covers the same epochs *
+        migrate_every generations; resident-free paces in raw generations
+        (no ring, no interval boundary), the others in whole intervals."""
+        e, mode = self.icfg.migrate_every, self.plan["mode"]
+        if mode == "resident-free":
+            g_max = self.plan["gens_per_launch"]
+            sched, left = [], epochs * e
+            while left:
+                g = min(g_max, left)
+                sched.append(self._resident_runner(g, migrate=False))
+                left -= g
+            return sched, g_max
+        per_launch = self.plan["epochs_per_launch"]
+        sched, left = [], epochs
+        while left:
+            k = min(per_launch, left)
+            if mode == "resident":
+                sched.append(self._resident_runner(k))
+            elif mode == "streamed":
+                sched.append(self._streamed_runner(k))
+            else:
+                sched.append(self._gridded_runner())
+            left -= k
+        return sched, e * per_launch
+
+    def segment(self, state, gens: int) -> Segment:
+        """Run the schedule, then fold the per-replica best as `islands`
+        samples it: per migration interval, the first island holding the
+        interval's best, kept on strict improvement.  (The JAX package folds
+        a resident launch's intervals first, so under a tie between islands
+        at different intervals its best_x depends on the plan; folding at
+        the interval makes every plan give `islands`' best_x.)  One
+        trajectory sample a launch: the best over its intervals and
+        islands, and the mean of its final fitness."""
+        e = self.icfg.migrate_every
+        epochs = max(1, math.ceil(gens / e))
+        r_, v, mini = self.spec.n_repeats, self.cfg.v, self.spec.minimize
+        reduce = np.min if mini else np.max
+        sched, unit = self._schedule(epochs)
+        bys, bxs, tms = [], [], []
+        for runner in sched:
+            state, by, bx, tm = runner(state)
+            bys.append(by)
+            bxs.append(bx)
+            tms.append(tm)
+        # one read-back for the whole segment
+        ends = np.cumsum([t.shape[0] for t in bys])
+        by = torch.cat(bys).cpu().numpy().reshape(ends[-1], r_, -1)
+        bx = convert.words_to_numpy(torch.cat(bxs)).reshape(
+            ends[-1], r_, -1, v)
+        tm = torch.stack(tms).cpu().numpy().reshape(len(sched), r_, -1)
+        rep_y = np.full((r_,), np.inf if mini else -np.inf, np.float32)
+        rep_x = np.zeros((r_, v), np.uint32)
+        rows = np.arange(r_)
+        for t in range(ends[-1]):
+            i = np.argmin(by[t], axis=1) if mini else np.argmax(by[t], axis=1)
+            ep_y, ep_x = by[t][rows, i], bx[t][rows, i]
+            better = ep_y < rep_y if mini else ep_y > rep_y
+            rep_y = np.where(better, ep_y, rep_y)
+            rep_x = np.where(better[:, None], ep_x, rep_x)
+        tb_rep = np.stack([reduce(by[a:b], axis=(0, 2)) for a, b in
+                           zip(np.concatenate([[0], ends[:-1]]), ends)],
+                          axis=1)                             # [R, launches]
+        tm_rep = np.ascontiguousarray(tm.mean(axis=2).T)
+        r = _arg_best(rep_y, mini)
+        tele = RT.RunTelemetry(
+            plan=RT.PlanInfo.from_plan(self.plan),
+            topology=RT.TopologyInfo(
+                n_islands=self.icfg.n_islands, launches=len(sched),
+                migrations=(epochs if self.spec.migration == "ring" else 0),
+                telemetry_unit_gens=unit),
+            per_repeat=RT.ReplicaStats(best=rep_y, best_x=rep_x,
+                                       traj_best=tb_rep, traj_mean=tm_rep))
+        return Segment(state=state, best_y=float(rep_y[r]), best_x=rep_x[r],
+                       traj_best=reduce(tb_rep, axis=0),
+                       traj_mean=tm_rep.mean(axis=0), gens=epochs * e,
+                       telemetry=tele)
+
+
+TOPOLOGIES: Dict[str, type] = {
+    SingleTopology.name: SingleTopology,
+    IslandRingTopology.name: IslandRingTopology,
+}
 
 class ComposedBackend(Backend):
     """A (topology × executor) pair behind the uniform Backend interface."""
@@ -318,7 +606,9 @@ class ComposedBackend(Backend):
         super().__init__(spec, options=options)
         self.executor: Executor = self.executor_cls(self.spec)
         self.topology: Topology = self.topology_cls(
-            self.spec, self.executor, device=self.device)
+            self.spec, self.executor, device=self.device,
+            plan_override=self.options.plan_override,
+            stream_tile_islands=self.options.stream_tile_islands)
 
     @classmethod
     def supports(cls, spec: GASpec) -> Optional[str]:
@@ -347,8 +637,13 @@ def _compose(backend_name: str, executor: type, topology: type) -> type:
 
 ReferenceBackend = _compose("reference", ReferenceExecutor, SingleTopology)
 FusedBackend = _compose("fused", FusedExecutor, SingleTopology)
+IslandsBackend = _compose("islands", ReferenceExecutor, IslandRingTopology)
+FusedIslandsBackend = _compose("fused-islands", FusedExecutor,
+                               IslandRingTopology)
 
 BACKENDS: Dict[str, type] = {
     ReferenceBackend.name: ReferenceBackend,
     FusedBackend.name: FusedBackend,
+    IslandsBackend.name: IslandsBackend,
+    FusedIslandsBackend.name: FusedIslandsBackend,
 }

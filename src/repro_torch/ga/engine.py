@@ -10,8 +10,9 @@
 Runs live on the card (``EngineOptions(device="cuda")``, the default)
 unless the options ask for the CPU; without a card an engine refuses to
 build instead of carrying on on the CPU.  Backend selection
-(`backend="auto"`) walks the capability matrix: fused on CUDA when the
-kernel's constraints hold, reference otherwise.  Pinning a backend that
+(`backend="auto"`) walks the capability matrix: for an island spec
+fused-islands on CUDA, then islands; for one population fused on CUDA,
+then reference — the kernels first where they run.  Pinning a backend that
 cannot run the spec warns and falls back to the next capable one — a
 decision about what the spec needs, never about the device or a kernel.
 """
@@ -42,10 +43,15 @@ def capability_matrix(spec: GASpec) -> Dict[str, Optional[str]]:
 
 
 def _auto_order(spec: GASpec, device: torch.device):
+    cuda = device.type == "cuda"
     order = []
-    if device.type == "cuda":
-        order.append("fused")   # the hand-written kernel
-    order.append("reference")
+    if spec.effective_topology == "island_ring":
+        if cuda:
+            order.append("fused-islands")   # the hand-written kernels
+        order.append("islands")
+    if cuda:
+        order.append("fused")
+    order += ["reference", "islands"]
     return order
 
 

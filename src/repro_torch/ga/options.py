@@ -1,32 +1,63 @@
 """`EngineOptions` — one frozen options object for every engine entry point.
 
-    opts = ga.EngineOptions(device="cpu")
-    ga.solve(spec, backend="fused", options=opts)
+    opts = ga.EngineOptions(device="cpu", plan_override="gridded")
+    ga.solve(spec, backend="fused-islands", options=opts)
 
 Knobs:
   * device — the torch device the run lives on.  Defaults to ``"cuda"``:
     the port runs on the card unless the caller asks for the CPU.  When
     CUDA is unavailable and the CPU was not asked for, building an engine
     raises instead of carrying on on the CPU.
+  * plan_override — force an island-ring epoch mode ("gridded",
+    "resident", "resident-free", "streamed"; a dict with a "mode" key is
+    read the same way); a mode the spec cannot run raises with the
+    candidates it can.
+  * stream_tile_islands — pin the streamed mode's island tile (islands one
+    thread block walks in turn; must divide the island count).  A launch
+    shape only: every tile gives the same result.
+
+Options only choose launch shapes, never results: every plan is
+bit-identical in state and best tracking.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+
+# the JAX package's modes less "resident-sharded", which needs a mesh
+PLAN_MODES = ("gridded", "resident", "resident-free", "streamed")
+
+
+def plan_mode(plan_override: Any) -> Optional[str]:
+    """The mode name a `plan_override` asks for (a string, or a dict with
+    a "mode" key), None for no override."""
+    if isinstance(plan_override, dict):
+        return plan_override.get("mode")
+    return plan_override
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     device: str = "cuda"
+    plan_override: Any = None
+    stream_tile_islands: Optional[int] = None
 
     def __post_init__(self):
         dev = torch.device(self.device)
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be a CUDA device or 'cpu', "
                              f"got {self.device!r}")
+        if (self.plan_override is not None
+                and plan_mode(self.plan_override) not in PLAN_MODES):
+            raise ValueError(
+                f"plan_override must be one of {PLAN_MODES} (or a dict with "
+                f"such a 'mode'), got {self.plan_override!r}")
+        tile = self.stream_tile_islands
+        if tile is not None and int(tile) < 1:
+            raise ValueError(f"stream_tile_islands must be >= 1, got {tile!r}")
 
     def torch_device(self) -> torch.device:
         """The run's device; raises when it is CUDA and no card is there."""

@@ -1,21 +1,60 @@
-"""Typed run telemetry: how a run executed, in two facets.
+"""Typed run telemetry: how a run executed, in three facets.
 
-  * `topology: TopologyInfo` — executor × topology names and the kernel
-    launches the run made;
+  * `plan: PlanInfo` — the epoch-plan decision of an island-ring run
+    (mode, provenance, fallback reason, launch fold shape, streamed tile,
+    the shared memory one block of the plan takes);
+  * `topology: TopologyInfo` — executor × topology names, the island
+    count, and the launches and migrations the run made;
   * `per_repeat: ReplicaStats | None` — per-replica best/trajectory arrays
     when the run stacked `n_repeats` replicas.
 
-The fields are the JAX package's that the single topology fills, under the
-same names, so a consumer reads both packages the same way.  The epoch
-plan and the island counters come with the topologies that fill them.
+The fields are the JAX package's that the port's topologies fill, under
+the same names, so a consumer reads both packages the same way; the one
+byte field is `smem_estimate_bytes` where the JAX package has its VMEM
+estimate.  Shard counters and measured plan rates come with the mesh and
+autotune slices that fill them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 TELEMETRY_VERSION = 1
+
+
+@dataclasses.dataclass
+class PlanInfo:
+    """The epoch-plan decision a segment ran under.
+
+    mode: "gridded" | "resident" | "resident-free" | "streamed" | "-" (no
+    plan: single topology).  source: "heuristic" | "forced" | "-".
+    fallback carries the Hopper limit that refused the resident shape (set
+    for the gridded fallback and for the streamed lane, which exists
+    because of that refusal).  tile_islands is the streamed mode's island
+    tile; lane the selection lane the kernels ran; smem_estimate_bytes the
+    dynamic shared memory one thread block of the plan's kernel takes."""
+
+    mode: str = "-"
+    source: str = "-"
+    fallback: Optional[str] = None
+    epochs_per_launch: int = 1
+    gens_per_launch: int = 1
+    tile_islands: Optional[int] = None
+    lane: str = "-"
+    smem_estimate_bytes: Optional[int] = None
+
+    @classmethod
+    def from_plan(cls, plan: Dict[str, Any]) -> "PlanInfo":
+        """Build from an `IslandRingTopology._epoch_plan` dict."""
+        return cls(mode=plan.get("mode", "-"),
+                   source=plan.get("plan_source", "heuristic"),
+                   fallback=plan.get("fallback"),
+                   epochs_per_launch=int(plan.get("epochs_per_launch", 1)),
+                   gens_per_launch=int(plan.get("gens_per_launch", 1)),
+                   tile_islands=plan.get("tile_islands"),
+                   lane=plan.get("lane", "-"),
+                   smem_estimate_bytes=plan.get("smem_estimate_bytes"))
 
 
 @dataclasses.dataclass
@@ -24,7 +63,12 @@ class TopologyInfo:
 
     executor: str = "-"
     topology: str = "-"
-    launches: int = 0          # fused executor: kernel launches made
+    n_islands: int = 1
+    launches: int = 0          # runner calls (kernel launches on single)
+    migrations: int = 0
+    # generations represented by ONE trajectory sample (resident/streamed
+    # launches fold many generations per sample)
+    telemetry_unit_gens: int = 1
 
 
 @dataclasses.dataclass
@@ -43,6 +87,7 @@ class RunTelemetry:
     """Versioned telemetry for one segment / one engine result."""
 
     version: int = TELEMETRY_VERSION
+    plan: PlanInfo = dataclasses.field(default_factory=PlanInfo)
     topology: TopologyInfo = dataclasses.field(default_factory=TopologyInfo)
     per_repeat: Optional[ReplicaStats] = None
     problem: Optional[str] = None

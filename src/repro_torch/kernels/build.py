@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` into ``build/repro_torch_kernels/<name>-<hash>.so`` under the
-repository root; the hash covers the source and the flags, so an edited
-source never loads a stale library.  `load` binds a library with `ctypes`.
+repository root; the hash covers the source, every ``csrc/*.cuh`` header
+and the flags, so an edited source or header never loads a stale library.  `load` binds a library with `ctypes`.
 `build_all` starts one ``nvcc`` per source, all at once, and waits for them.
 
 Nothing here runs at import: `ctypes` is imported and ``nvcc`` started only
@@ -46,10 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where library `name` lives: the digest covers its source, every
+    header of `csrc/` (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, "subprocess.Popen"]:

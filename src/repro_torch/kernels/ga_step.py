@@ -1,23 +1,49 @@
-"""K1: fused GA generations per replica — the CUDA kernel and its plain twin.
+"""The fused GA kernels of the island ring — CUDA kernels and plain twins.
 
-`ga_generation_kernel` is the wrapper the fused executor calls.  On a CUDA
-tensor it launches ``csrc/ga_step.cu`` (built on first use by
-`repro_torch.kernels.build`) and counts the launch in ``LAUNCHES``; on a CPU
-tensor it runs `ga_generation_plain`, the same function in plain PyTorch
-built from the port's `core.ga` operators and the program's `stage`.  There
-is no fallback between the two: a call the kernel cannot take raises, on
-either device, so the CPU path accepts exactly what the card does.
+  K1 `ga_generation_kernel`      `gens` generations of each island (replica)
+                                 of a stack [R, N, V];
+  K2 `ga_epoch_kernel`           resident epochs of replica groups
+                                 [G, I, N, V]: `intervals` migration
+                                 intervals with the ring migration inside the
+                                 kernel (`migrate=False`: no ring, the
+                                 resident-free mode; `boundary=True`: the
+                                 intra-shard part only);
+  K3 `ga_streamed_epoch_kernel`  one interval of every island of [G, I, N,
+                                 V], returning the pre-splice elites and
+                                 worst slots for a splice outside.
 
-Contract (the JAX package's `ga_generation_kernel`, on int32 words):
-x int32[R, N, V], sel int32[R, 2, N], cross int32[R, V, N/2],
-mut int32[R, V, N] -> (x', sel', cross', mut', y f32[R, N]) where y is the
-fitness of the last pre-update population; `track_best` appends
-(best_y f32[R], best_x int32[R, V]), the best over all `gens` generations
-with strict improvement and the first-occurrence tie rule.
+On a CUDA tensor each wrapper launches its kernel in ``csrc/ga_step.cu``
+(built on first use by `repro_torch.kernels.build`) and counts the launch
+in ``LAUNCHES``; on a CPU tensor it runs its plain version, the same
+function in plain PyTorch built from the port's `core.ga` operators, the
+program's `stage` and `core.islands`' migration rule set.  There is no
+fallback between the two: a call the kernel cannot take raises, on either
+device, so the CPU path accepts exactly what the card does.
 
-The kernel holds one replica per thread block with its whole state in
+Contracts (the JAX package's kernels, on int32 words):
+
+  K1  x int32[R, N, V], sel int32[R, 2, N], cross int32[R, V, N/2],
+      mut int32[R, V, N] -> (x', sel', cross', mut', y f32[R, N]) where y is
+      the fitness of the last pre-update population; `track_best` appends
+      (best_y f32[R], best_x int32[R, V]), the best over all `gens`
+      generations with strict improvement and the first-occurrence rule.
+  K2  the same banks with leading axes [G, I] -> (state', y f32[G, I, N],
+      best_y f32[K, G, I], best_x int32[K, G, I, V]); y is the final
+      interval's migration fitness (pre-splice); best_* hold the best of
+      each of the K intervals (the TPU kernel returns their fold over the
+      launch: folding at the interval keeps the island ring's per-replica
+      best the same under every plan, see `IslandRingTopology.segment`);
+      `boundary` appends (send_elite int32[G, V], worst0 int32[G]).
+  K3  one interval: (state', y f32[G, I, N], best_y f32[G, I], best_x
+      int32[G, I, V]), plus (elite_x int32[G, I, V], worst_idx int32[G, I])
+      with `migrate`.
+
+Each kernel holds one island per thread block with its whole state in
 shared memory (see the note at the top of the CUDA source), so (N, V) must
-fit `SMEM_LIMIT`; `hopper_reason` says why a shape or a fitness cannot run.
+fit `SMEM_LIMIT`; K2's ring makes the islands of a group one thread-block
+cluster, at most `MAX_CLUSTER`.  `hopper_reason` says why a shape or a
+fitness cannot run, and the epoch planner (`epoch_mode_candidates`) which
+launch shapes an island-ring spec can take on this card.
 """
 
 from __future__ import annotations
@@ -30,12 +56,15 @@ import torch
 
 from repro_torch.core import fitness as F
 from repro_torch.core import ga as G
+from repro_torch.core import islands as ISL
 from repro_torch.core.ga import GAConfig, ONEHOT_MAX_N
 
 # launches of each kernel made by its wrapper (plain-version calls excluded)
-LAUNCHES: Dict[str, int] = {"ga_generation": 0}
+LAUNCHES: Dict[str, int] = {"ga_generation": 0, "ga_epoch": 0,
+                            "ga_streamed_epoch": 0}
 
 SMEM_LIMIT = 232448            # bytes of shared memory a Hopper block can use
+MAX_CLUSTER = 8                # portable thread-block cluster size (K2 ring)
 
 # the built-in problems the kernel's FFM stage implements, by kernel id
 PROBLEM_IDS = {"F1": 0, "F2": 1, "F3": 2, "sphere": 3, "rastrigin": 4,
@@ -54,6 +83,12 @@ def smem_bytes(n: int, v: int) -> int:
     layout in ``csrc/ga_step.cu``)."""
     return 4 * (2 * n * v + n + 2 * n + v * (n // 2) + v * n + 3 * v + 2
                 + 64)
+
+
+def epoch_smem_bytes(n: int, v: int) -> int:
+    """Shared memory one K2 or K3 block takes for an island of shape (N, V):
+    K1's layout plus the elite row a ring neighbour reads and one slot."""
+    return smem_bytes(n, v) + 4 * (v + 1)
 
 
 def problem_id(program: F.FitnessProgram) -> Optional[int]:
@@ -106,14 +141,18 @@ def check_kernel_lane(cfg: GAConfig, program: F.FitnessProgram) -> None:
         raise ValueError(reason)
 
 
-def _check_shapes(x, sel, cross, mut, cfg: GAConfig) -> None:
-    if x.dim() != 3 or tuple(x.shape[1:]) != (cfg.n, cfg.v):
-        raise ValueError(f"x must be [R, {cfg.n}, {cfg.v}], got "
-                         f"{tuple(x.shape)}")
-    r = x.shape[0]
-    want = {"sel": (sel, (r, 2, cfg.n)),
-            "cross": (cross, (r, cfg.v, cfg.n // 2)),
-            "mut": (mut, (r, cfg.v, cfg.n))}
+def _check_shapes(x, sel, cross, mut, cfg: GAConfig, lead: str = "R"
+                  ) -> None:
+    """The banks of a stack whose leading axes are named by `lead` ("R":
+    [R, ...], "GI": [G, I, ...]): int32 words on one device."""
+    k = len(lead)
+    if x.dim() != k + 2 or tuple(x.shape[k:]) != (cfg.n, cfg.v):
+        raise ValueError(f"x must be [{', '.join(lead)}, {cfg.n}, {cfg.v}], "
+                         f"got {tuple(x.shape)}")
+    r = tuple(x.shape[:k])
+    want = {"sel": (sel, r + (2, cfg.n)),
+            "cross": (cross, r + (cfg.v, cfg.n // 2)),
+            "mut": (mut, r + (cfg.v, cfg.n))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got "
@@ -158,10 +197,19 @@ def kernel_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ga_step_launch.argtypes = [p] * 13 + [i] * 12 + [p]
     lib.ga_step_launch.restype = i
-    lib.ga_step_smem_bytes.argtypes = [i, i]
-    lib.ga_step_smem_bytes.restype = ctypes.c_size_t
-    lib.ga_step_smem_limit.argtypes = []
-    lib.ga_step_smem_limit.restype = i
+    lib.ga_epoch_launch.argtypes = [p] * 15 + [i] * 15 + [p]
+    lib.ga_epoch_launch.restype = i
+    lib.ga_streamed_launch.argtypes = [p] * 15 + [i] * 14 + [p]
+    lib.ga_streamed_launch.restype = i
+    lib.ga_epoch_max_active_clusters.argtypes = [i, i, i,
+                                                 ctypes.POINTER(i)]
+    lib.ga_epoch_max_active_clusters.restype = i
+    for fn in (lib.ga_step_smem_bytes, lib.ga_epoch_smem_bytes):
+        fn.argtypes = [i, i]
+        fn.restype = ctypes.c_size_t
+    for fn in (lib.ga_step_smem_limit, lib.ga_step_max_cluster):
+        fn.argtypes = []
+        fn.restype = i
     lib.ga_step_error_string.argtypes = [i]
     lib.ga_step_error_string.restype = ctypes.c_char_p
     return lib
@@ -204,9 +252,299 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             r, n, v, cfg.c, cfg.idx_bits, cfg.cut_bits, cfg.p,
             cfg.steps_per_draw, int(cfg.minimize), problem_id(program), gens,
             int(track_best), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"ga_step kernel launch failed: CUDA error {err} "
-            f"({lib.ga_step_error_string(err).decode()})")
+    _check_launch(err, "ga_step")
     LAUNCHES["ga_generation"] += 1
     return tuple(outs) + (y,) + ((by, bx) if track_best else ())
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err} "
+            f"({kernel_library().ga_step_error_string(err).decode()})")
+
+
+# ---------------------------------------------------------------------------
+# The Hopper epoch planner (tier 1: feasibility on this card)
+# ---------------------------------------------------------------------------
+
+
+def epoch_smem_reason(cfg: GAConfig) -> Optional[str]:
+    """None when one island fits a K2/K3 block's shared memory, else why."""
+    need = epoch_smem_bytes(cfg.n, cfg.v)
+    if need > SMEM_LIMIT:
+        return (f"N={cfg.n}, V={cfg.v} needs {need} bytes of shared memory "
+                "per island block of the epoch kernels, past the "
+                f"{SMEM_LIMIT}-byte limit of one Hopper thread block")
+    return None
+
+
+def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True
+                        ) -> Optional[str]:
+    """None when a resident epoch of `i_local` islands runs on Hopper, else
+    the limit that refuses it.  One K2 block holds one island, so the block
+    must fit a block's shared memory; the ring makes a group's islands one
+    thread-block cluster, so with `ring` it also needs i_local <=
+    MAX_CLUSTER.  The resident-free mode has no ring and no cluster."""
+    if ring and i_local > MAX_CLUSTER:
+        return (f"resident epoch makes the {i_local} islands of a replica "
+                "one thread-block cluster for its ring, past the portable "
+                f"cluster size of {MAX_CLUSTER} on Hopper")
+    return epoch_smem_reason(cfg)
+
+
+def streamed_tile_islands(cfg: GAConfig) -> Optional[int]:
+    """The streamed lane's island tile: 1 when one island fits a K3 block
+    (the blocks of a launch already run side by side on the card's SMs, so
+    a larger tile only serialises islands), None when it does not."""
+    return 1 if epoch_smem_reason(cfg) is None else None
+
+
+def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
+                          migration: str, gens_per_epoch: int,
+                          migrate_every: int) -> list:
+    """The launch shapes an island-ring spec can run on Hopper, ordered so
+    candidates[0] is the heuristic choice.  The structure and the order are
+    the JAX package's `epoch_mode_candidates` (they decide
+    `gens_per_launch`, and so the trajectory's sample count); only the
+    feasibility test is this card's (`resident_fit_reason`,
+    `streamed_tile_islands`).
+
+    Each candidate is a plan dict: {"mode", "lane", "epochs_per_launch",
+    "gens_per_launch"} (+ "fallback", the limit that refused the resident
+    shape, + "tile_islands" for the streamed mode)."""
+    g_gridded = (min(gens_per_epoch, migrate_every) if executor == "fused"
+                 else migrate_every)
+    gridded = {"mode": "gridded", "lane": cfg.sel_lane,
+               "epochs_per_launch": 1, "gens_per_launch": g_gridded}
+    if executor != "fused":
+        return [gridded]
+    k = max(1, gens_per_epoch // migrate_every)
+    if migration == "ring" and gens_per_epoch >= migrate_every:
+        reason = resident_fit_reason(cfg, i_local)
+        if reason is not None:
+            tile = streamed_tile_islands(cfg)
+            if tile is None:
+                return [dict(gridded, fallback=reason)]
+            return [{"mode": "streamed", "lane": cfg.sel_lane,
+                     "epochs_per_launch": k,
+                     "gens_per_launch": k * migrate_every,
+                     "tile_islands": tile, "fallback": reason},
+                    dict(gridded, fallback=reason)]
+        return [{"mode": "resident", "lane": cfg.sel_lane,
+                 "epochs_per_launch": k,
+                 "gens_per_launch": k * migrate_every}, gridded]
+    if migration == "none" and gens_per_epoch > migrate_every:
+        # no ring: gridded stays the heuristic; resident-free (or, past the
+        # block, a streamed tile) is offered for plan_override to pick
+        reason = resident_fit_reason(cfg, i_local, ring=False)
+        if reason is not None:
+            tile = streamed_tile_islands(cfg)
+            out = [dict(gridded, fallback=reason)]
+            if tile is not None:
+                out.append({"mode": "streamed", "lane": cfg.sel_lane,
+                            "epochs_per_launch": k,
+                            "gens_per_launch": k * migrate_every,
+                            "tile_islands": tile, "fallback": reason})
+            return out
+        return [gridded,
+                {"mode": "resident-free", "lane": cfg.sel_lane,
+                 "epochs_per_launch": k, "gens_per_launch": gens_per_epoch}]
+    return [gridded]
+
+
+def max_active_clusters(cfg: GAConfig, i_local: int) -> int:
+    """How many K2 clusters of `i_local` islands at (N, V) the card holds
+    at once (cudaOccupancyMaxActiveClusters); needs a card."""
+    import ctypes
+    lib = kernel_library()
+    out = ctypes.c_int(0)
+    _check_launch(lib.ga_epoch_max_active_clusters(cfg.n, cfg.v, i_local,
+                                                   ctypes.byref(out)),
+                  "ga_epoch occupancy")
+    return out.value
+
+
+# ---------------------------------------------------------------------------
+# K2: resident epochs
+# ---------------------------------------------------------------------------
+
+
+def ga_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
+                   program: F.FitnessProgram, migrate_every: int,
+                   intervals: int = 1, boundary: bool = False,
+                   migrate: bool = True) -> Tuple[torch.Tensor, ...]:
+    """K2's function in plain PyTorch, on any device: per interval,
+    `migrate_every` generations of every island with the interval's best
+    folded per generation, the migration fitness of the final populations
+    (`program.stage`), then `islands.ring_migrate_stack` — or nothing
+    (`migrate=False`), or the partial ring of `boundary` (islands 1..I-1
+    take elites 0..I-2; island I-1's elite and island 0's worst slot are
+    returned instead).  Takes what the wrapper validated."""
+    mini = cfg.minimize
+    lead = x.shape[:2]
+    state = G.GAState(x, sel, cross, mut,
+                      torch.zeros(lead, dtype=torch.int32, device=x.device))
+    bys, bxs, extra = [], [], ()
+    for _ in range(intervals):
+        by = torch.full(lead, math.inf if mini else -math.inf,
+                        dtype=torch.float32, device=x.device)
+        bx = torch.zeros(lead + (cfg.v,), dtype=torch.int32, device=x.device)
+        for _ in range(migrate_every):
+            nxt, y = G.generation(state, cfg, program.stage)
+            gb, gx = G.gen_best(state.x, y, mini)
+            by, bx = G.fold_best(by, bx, gb, gx, mini)
+            state = nxt
+        bys.append(by)
+        bxs.append(bx)
+        ymig = program.stage(state.x)
+        if boundary:
+            elite_x, _ = ISL.elites_stack(state.x, ymig, minimize=mini)
+            widx = ISL.worst_slot(ymig, minimize=mini)
+            not_first = (torch.arange(lead[1], device=x.device) >= 1)
+            xs = ISL.splice_at(state.x, widx, torch.roll(elite_x, 1, dims=-2),
+                               island_mask=not_first.unsqueeze(-1))
+            state = state._replace(x=xs)
+            extra = (elite_x[:, -1], widx[:, 0].to(torch.int32))
+        elif migrate:
+            xs, _, _ = ISL.ring_migrate_stack(state.x, ymig, minimize=mini)
+            state = state._replace(x=xs)
+    return (state.x, state.sel_lfsr, state.cross_lfsr, state.mut_lfsr, ymig,
+            torch.stack(bys), torch.stack(bxs)) + extra
+
+
+def _check_epoch(name, x, sel, cross, mut, cfg, program, migrate_every,
+                 intervals) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {x.device}")
+    check_kernel_lane(cfg, program)
+    _check_shapes(x, sel, cross, mut, cfg, lead="GI")
+    if migrate_every < 1 or intervals < 1:
+        raise ValueError(f"migrate_every and intervals must be >= 1, got "
+                         f"{migrate_every} and {intervals}")
+    reason = epoch_smem_reason(cfg)
+    if reason is not None:
+        raise ValueError(reason)
+
+
+def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
+                    program: F.FitnessProgram, migrate_every: int,
+                    intervals: int = 1, boundary: bool = False,
+                    migrate: bool = True) -> Tuple[torch.Tensor, ...]:
+    """Resident epochs over replica-stacked island groups (see the module
+    docstring for the contract).  `migrate=False` is the resident-free mode
+    (no ring, no cluster); `boundary=True` needs the ring and one interval.
+    With the ring, the I islands of a group form one thread-block cluster,
+    so I <= MAX_CLUSTER."""
+    _check_epoch("ga_epoch_kernel", x, sel, cross, mut, cfg, program,
+                 migrate_every, intervals)
+    if boundary and (not migrate or intervals != 1):
+        raise ValueError("boundary epochs exchange elites between launches: "
+                         "they need migrate=True and one interval")
+    g_grid, i_islands = x.shape[:2]
+    if migrate and i_islands > MAX_CLUSTER:
+        raise ValueError(
+            f"the ring of {i_islands} islands would be one thread-block "
+            f"cluster past the portable size of {MAX_CLUSTER}; run the "
+            "streamed or gridded plan")
+    if x.device.type == "cpu":
+        return ga_epoch_plain(x, sel, cross, mut, cfg=cfg, program=program,
+                              migrate_every=migrate_every,
+                              intervals=intervals, boundary=boundary,
+                              migrate=migrate)
+    x, sel, cross, mut = (t.contiguous() for t in (x, sel, cross, mut))
+    n, v = cfg.n, cfg.v
+    dev = x.device
+    lo, span = program.device_consts(dev)
+    outs = [torch.empty_like(t) for t in (x, sel, cross, mut)]
+    y = torch.empty((g_grid, i_islands, n), dtype=torch.float32, device=dev)
+    by = torch.empty((intervals, g_grid, i_islands), dtype=torch.float32,
+                     device=dev)
+    bx = torch.empty((intervals, g_grid, i_islands, v), dtype=torch.int32,
+                     device=dev)
+    send = torch.empty((g_grid, v), dtype=torch.int32, device=dev)
+    w0 = torch.empty((g_grid,), dtype=torch.int32, device=dev)
+    lib = kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ga_epoch_launch(
+            x.data_ptr(), sel.data_ptr(), cross.data_ptr(), mut.data_ptr(),
+            *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
+            bx.data_ptr(), send.data_ptr(), w0.data_ptr(), lo.data_ptr(),
+            span.data_ptr(), g_grid, i_islands, n, v, cfg.c, cfg.idx_bits,
+            cfg.cut_bits, cfg.p, cfg.steps_per_draw, int(cfg.minimize),
+            problem_id(program), migrate_every, intervals, int(migrate),
+            int(boundary), stream)
+    _check_launch(err, "ga_epoch")
+    LAUNCHES["ga_epoch"] += 1
+    return tuple(outs) + (y, by, bx) + ((send, w0) if boundary else ())
+
+
+# ---------------------------------------------------------------------------
+# K3: streamed epochs
+# ---------------------------------------------------------------------------
+
+
+def ga_streamed_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
+                            program: F.FitnessProgram, migrate_every: int,
+                            tile_islands: int = 1, migrate: bool = True
+                            ) -> Tuple[torch.Tensor, ...]:
+    """K3's function in plain PyTorch, on any device: one interval of every
+    island (K2's function without a ring) and, with `migrate`, the
+    pre-splice elites and worst slots of the migration rule set.  The tile
+    is a launch shape only and changes nothing here."""
+    out = ga_epoch_plain(x, sel, cross, mut, cfg=cfg, program=program,
+                         migrate_every=migrate_every, migrate=False)
+    out = out[:5] + (out[5][0], out[6][0])       # the one interval's best
+    if not migrate:
+        return out
+    x2, ymig = out[0], out[4]
+    elite_x, _ = ISL.elites_stack(x2, ymig, minimize=cfg.minimize)
+    widx = ISL.worst_slot(ymig, minimize=cfg.minimize).to(torch.int32)
+    return out + (elite_x, widx)
+
+
+def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
+                             program: F.FitnessProgram, migrate_every: int,
+                             tile_islands: int = 1, migrate: bool = True
+                             ) -> Tuple[torch.Tensor, ...]:
+    """One migration interval of every island of [G, I, ...] stacks, one
+    block walking `tile_islands` islands in turn (see the module docstring
+    for the contract).  The caller splices the returned elites, shifted by
+    one island, into the worst slots between passes."""
+    _check_epoch("ga_streamed_epoch_kernel", x, sel, cross, mut, cfg,
+                 program, migrate_every, 1)
+    g_grid, i_islands = x.shape[:2]
+    if tile_islands < 1 or i_islands % tile_islands:
+        raise ValueError(f"tile_islands={tile_islands} must divide the "
+                         f"island count {i_islands}")
+    if x.device.type == "cpu":
+        return ga_streamed_epoch_plain(x, sel, cross, mut, cfg=cfg,
+                                       program=program,
+                                       migrate_every=migrate_every,
+                                       tile_islands=tile_islands,
+                                       migrate=migrate)
+    x, sel, cross, mut = (t.contiguous() for t in (x, sel, cross, mut))
+    n, v = cfg.n, cfg.v
+    dev = x.device
+    lo, span = program.device_consts(dev)
+    outs = [torch.empty_like(t) for t in (x, sel, cross, mut)]
+    y = torch.empty((g_grid, i_islands, n), dtype=torch.float32, device=dev)
+    by = torch.empty((g_grid, i_islands), dtype=torch.float32, device=dev)
+    bx = torch.empty((g_grid, i_islands, v), dtype=torch.int32, device=dev)
+    ex = torch.empty((g_grid, i_islands, v), dtype=torch.int32, device=dev)
+    wi = torch.empty((g_grid, i_islands), dtype=torch.int32, device=dev)
+    lib = kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ga_streamed_launch(
+            x.data_ptr(), sel.data_ptr(), cross.data_ptr(), mut.data_ptr(),
+            *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
+            bx.data_ptr(), ex.data_ptr(), wi.data_ptr(), lo.data_ptr(),
+            span.data_ptr(), g_grid, i_islands, tile_islands, n, v, cfg.c,
+            cfg.idx_bits, cfg.cut_bits, cfg.p, cfg.steps_per_draw,
+            int(cfg.minimize), problem_id(program), migrate_every,
+            int(migrate), stream)
+    _check_launch(err, "ga_streamed_epoch")
+    LAUNCHES["ga_streamed_epoch"] += 1
+    return tuple(outs) + (y, by, bx) + ((ex, wi) if migrate else ())

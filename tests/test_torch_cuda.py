@@ -1,5 +1,7 @@
-"""The port on the card: the CUDA kernel K1 against its plain PyTorch version
-on the same card tensors, and the fused backend against the reference.
+"""The port on the card: the CUDA kernels K1-K4 against their plain PyTorch
+versions on the same card tensors, and the fused backends against the plain
+ones (`fused` against `reference`, `fused-islands` under every epoch plan
+against `islands`).
 
 Every test here needs an NVIDIA GPU and nvcc; elsewhere they skip.  Only
 torch and the port are imported, so the file also runs on a machine
@@ -23,7 +25,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert, ga  # noqa: E402
 from repro_torch.core import fitness as TF  # noqa: E402
 from repro_torch.core import ga as TG  # noqa: E402
+from repro_torch.core import islands as TISL  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
+from repro_torch.kernels import lfsr_kernel as K4  # noqa: E402
 
 Y_TOL = 1e-6
 EXACT = ("F1", "F2", "F3")
@@ -109,3 +113,177 @@ def test_fused_solve_matches_reference_on_card(cuda_device, problem):
         np.testing.assert_array_equal(a, b)
     assert f.best_fitness == r.best_fitness
     np.testing.assert_array_equal(f.best_x, r.best_x)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3, the island ring's epoch kernels
+# ---------------------------------------------------------------------------
+
+EPOCH_SHAPES = ([(p, n) for p in EXACT for n in (64, 1024, 4096)]
+                + [(p, 1024) for p in ("rastrigin:8", "ackley:8")])
+
+
+def _island_groups(cfg, groups, islands, device):
+    st = TISL.init_islands_fast(TISL.IslandConfig(
+        ga=cfg, n_islands=groups * islands), device=device)
+    return [t.reshape((groups, islands) + t.shape[1:]) for t in st[:4]]
+
+
+def _epoch_case(problem, n, minimize):
+    prog = TF.compile_program(problem=problem, bits_per_var=10)
+    cfg = TG.GAConfig(n=n, c=10, v=prog.n_vars, mutation_rate=0.02, seed=4,
+                      minimize=minimize, mode="arith", sel_lane="gather")
+    return prog, cfg
+
+
+def _assert_kernel_equals_plain(got, want, exact):
+    """Words bit-exact; y (index 4) within 1e-6 * max|y| and, off F1-F3,
+    best_y (index 5) too."""
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if a.dtype == np.float32:
+            assert np.all(np.isfinite(a))
+            assert np.max(np.abs(a - b)) <= Y_TOL * np.max(np.abs(b))
+            if not exact:
+                continue
+        np.testing.assert_array_equal(a, b, err_msg=f"output {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minimize", [True, False])
+@pytest.mark.parametrize("islands", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["ring", "free", "boundary"])
+@pytest.mark.parametrize("problem,n", EPOCH_SHAPES)
+def test_epoch_kernel_matches_plain(cuda_device, problem, n, mode, islands,
+                                    minimize):
+    prog, cfg = _epoch_case(problem, n, minimize)
+    args = _island_groups(cfg, 2, islands, cuda_device)
+    kw = dict(migrate_every=3, intervals=1 if mode == "boundary" else 2,
+              boundary=mode == "boundary", migrate=mode != "free")
+    before = K.LAUNCHES["ga_epoch"]
+    got = K.ga_epoch_kernel(*args, cfg=cfg, program=prog, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_epoch"] == before + 1
+    want = K.ga_epoch_plain(*args, cfg=cfg, program=prog, **kw)
+    _assert_kernel_equals_plain(got, want, prog.name in EXACT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minimize", [True, False])
+@pytest.mark.parametrize("tile", [1, 2])
+@pytest.mark.parametrize("problem,n", EPOCH_SHAPES)
+def test_streamed_kernel_matches_plain(cuda_device, problem, n, tile,
+                                       minimize):
+    prog, cfg = _epoch_case(problem, n, minimize)
+    args = _island_groups(cfg, 2, 4, cuda_device)
+    before = K.LAUNCHES["ga_streamed_epoch"]
+    got = K.ga_streamed_epoch_kernel(*args, cfg=cfg, program=prog,
+                                     migrate_every=3, tile_islands=tile)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_streamed_epoch"] == before + 1
+    want = K.ga_streamed_epoch_plain(*args, cfg=cfg, program=prog,
+                                     migrate_every=3)
+    _assert_kernel_equals_plain(got, want, prog.name in EXACT)
+
+
+@pytest.mark.cuda
+def test_epoch_shared_memory_and_clusters(cuda_device):
+    lib = K.kernel_library()
+    assert lib.ga_step_max_cluster() == K.MAX_CLUSTER
+    for n, v in ((2, 1), (64, 2), (1024, 8), (4096, 2)):
+        assert lib.ga_epoch_smem_bytes(n, v) == K.epoch_smem_bytes(n, v)
+    cfg = TG.GAConfig(n=1024, c=16, v=8, mode="arith", sel_lane="gather")
+    for islands in (1, 4, 8):
+        assert K.max_active_clusters(cfg, islands) >= 1
+
+
+@pytest.mark.cuda
+def test_epoch_kernels_refuse_what_they_cannot_take(cuda_device):
+    prog, cfg = _epoch_case("F3", 64, True)
+    args = _island_groups(cfg, 1, 9, cuda_device)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="thread-block cluster"):
+        K.ga_epoch_kernel(*args, cfg=cfg, program=prog, migrate_every=2)
+    four = [t[:, :4] for t in args]
+    with pytest.raises(TypeError, match="int32 words"):
+        K.ga_epoch_kernel(four[0].to(torch.int64), *four[1:], cfg=cfg,
+                          program=prog, migrate_every=2)
+    with pytest.raises(ValueError, match="must be"):
+        K.ga_streamed_epoch_kernel(four[0][0], *four[1:], cfg=cfg,
+                                   program=prog, migrate_every=2)
+    blackbox = TF.compile_program(fitness=lambda p: p.sum(-1),
+                                  bounds=((-1.0, 1.0),) * 2, bits_per_var=10)
+    for fn in (K.ga_epoch_kernel, K.ga_streamed_epoch_kernel):
+        with pytest.raises(ValueError, match="no Hopper FFM stage"):
+            fn(*four, cfg=cfg, program=blackbox, migrate_every=2)
+    assert K.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7,), (3, 5), (2, 130), (1 << 20,)])
+@pytest.mark.parametrize("steps", [1, 3, 13, 40])
+def test_lfsr_kernel_matches_plain(cuda_device, shape, steps):
+    from repro_torch.core import lfsr
+    s = lfsr.seeds(99, int(np.prod(shape)), device=cuda_device).reshape(shape)
+    before = K4.LAUNCHES["lfsr_advance"]
+    got = K4.lfsr_advance_kernel(s, steps)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["lfsr_advance"] == before + 1
+    assert torch.equal(got, K4.lfsr_advance_plain(s, steps))
+
+
+# ---------------------------------------------------------------------------
+# fused-islands under every plan against islands
+# ---------------------------------------------------------------------------
+
+
+def _island_solve(backend, **kw):
+    opts = {k: kw.pop(k) for k in ("plan_override", "stream_tile_islands")
+            if k in kw}
+    spec = ga.GASpec(**dict(dict(n=64, bits_per_var=10, mode="arith",
+                                 mutation_rate=0.05, seed=3, generations=20,
+                                 n_islands=4, migrate_every=5,
+                                 gens_per_epoch=5), **kw))
+    return ga.solve(spec, backend=backend, options=ga.EngineOptions(**opts))
+
+
+def _assert_same_solve(a, b, traj=True):
+    for x, y in zip(convert.state_to_numpy(a.state),
+                    convert.state_to_numpy(b.state)):
+        np.testing.assert_array_equal(x, y)
+    assert a.best_fitness == b.best_fitness
+    np.testing.assert_array_equal(a.best_x, b.best_x)
+    if traj:
+        np.testing.assert_array_equal(a.traj_best, b.traj_best)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["F3", "rosenbrock:5", "sphere:8"])
+def test_fused_islands_plans_match_islands_on_card(cuda_device, problem):
+    """Each plan launches its kernel and equals `islands`; resident-free
+    folds two epochs a launch, so its trajectory has half the samples."""
+    cases = [(dict(), "resident", "ga_epoch"),
+             (dict(n_islands=12, n_repeats=2), "streamed",
+              "ga_streamed_epoch"),
+             (dict(n_islands=12, n_repeats=2, stream_tile_islands=3),
+              "streamed", "ga_streamed_epoch"),
+             (dict(migration="none", gens_per_epoch=10), "resident-free",
+              "ga_epoch")]
+    for kw, mode, kernel in cases:
+        ref = _island_solve("islands", problem=problem,
+                            **{k: v for k, v in kw.items()
+                               if k != "stream_tile_islands"})
+        for plan, launched in ((mode, kernel), ("gridded", "ga_generation")):
+            before = K.LAUNCHES[launched]
+            got = _island_solve("fused-islands", problem=problem,
+                                plan_override=plan, **kw)
+            assert got.backend == "fused-islands"
+            assert got.telemetry.plan.mode == plan
+            assert K.LAUNCHES[launched] > before
+            _assert_same_solve(got, ref, traj=plan != "resident-free")

@@ -143,7 +143,10 @@ def test_gaspec_fields_match_jax_package():
 
 def test_capability_matrix_and_fallback():
     ok = ga.GASpec(**_kw())
-    assert ga.capability_matrix(ok) == {"reference": None, "fused": None}
+    # the island backends also take one population: a ring of one island
+    assert ga.capability_matrix(ok) == {"reference": None, "fused": None,
+                                        "islands": None,
+                                        "fused-islands": None}
     assert ga.resolve_backend(ok, "auto", "cuda") == "fused"
     assert ga.resolve_backend(ok, "auto", "cpu") == "reference"
     cases = {
@@ -159,7 +162,7 @@ def test_capability_matrix_and_fallback():
         with pytest.warns(UserWarning, match="falling back to 'reference'"):
             assert ga.resolve_backend(spec, "fused", "cuda") == "reference"
     with pytest.raises(ga.BackendUnsupported):
-        ga.resolve_backend(ok, "islands")
+        ga.resolve_backend(ok, "no-such-backend")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         r = ga.solve(ga.GASpec(**_kw(mode="lut", generations=5)), "reference",
