@@ -390,7 +390,7 @@ class IslandRingTopology(Topology):
                     f"plan_override mode {want!r} is not feasible for this "
                     f"spec (candidates: {[c['mode'] for c in cands]})"
                     + hint)
-        n, v = self.cfg.n, self.cfg.v
+        n, v, p = self.cfg.n, self.cfg.v, self.cfg.p
         if plan["mode"] == "streamed":
             if self.stream_tile_islands is not None:
                 t = int(self.stream_tile_islands)
@@ -400,11 +400,11 @@ class IslandRingTopology(Topology):
                         "it must divide the island count "
                         f"{spec.n_islands}")
                 plan["tile_islands"] = t
-            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v)
+            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
         elif plan["mode"].startswith("resident"):
-            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v)
+            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
         elif self.executor.name == "fused":
-            plan["smem_estimate_bytes"] = K.smem_bytes(n, v)
+            plan["smem_estimate_bytes"] = K.smem_bytes(n, v, p)
         return plan
 
     @staticmethod

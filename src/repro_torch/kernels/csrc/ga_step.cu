@@ -17,50 +17,91 @@
 //                            island of a tile, returning the pre-splice
 //                            elites and worst slots for a splice outside.
 //
-// One generation (`generation` below) is the paper's datapath: a clock of
-// the three LFSR banks (selection, crossover, mutation) by `steps` bits, the
-// FFM stage (decode + the problem's float32 expression), 2-way tournaments
-// on the top `idx_bits` of the selection draws, mask-shift single-point
-// crossover with per-variable cut points, and an XOR mutation of the first
-// P rows; with `track_best` it folds the running best individual with
-// strict improvement and the first-occurrence tie rule of the reference
-// scan.  K1, K2 and K3 all run that one device function, so every plan of
-// the island ring evolves the same populations bit for bit.
+// One generation (`generation` below) is the paper's datapath: 2-way
+// tournaments on the top `idx_bits` of the selection draws, mask-shift
+// single-point crossover with per-variable cut points, an XOR mutation of
+// the first P rows, and the FFM stage (decode + the problem's float32
+// expression) of the offspring; each LFSR word is clocked by `steps` just
+// before the draw it feeds.  With `track_best` it folds the running best of
+// the pre-update population with strict improvement and the
+// first-occurrence tie rule of the reference scan.  K1, K2 and K3 all run
+// that one device function, so every plan of the island ring evolves the
+// same populations bit for bit.
 //
-// What bounds them.  At the full-width shape (N=1024, V=8, 128 islands, 64
-// generations a launch) an island's state is N*V + 2N + V*N/2 + V*N =
-// 22,528 words (88 KiB), 11 MiB for the stack, so HBM traffic is 2 x 11 MiB
-// = 23.6 MB per launch: 7 us at 3.35 TB/s.  The work is integer and float32
-// issue: every generation advances the 14,336 words of the three LFSR banks
-// by 3 clocks, evaluates N fitness values, and runs N tournaments and N*V/2
-// crossovers: ~0.35 M operations per island and generation counting the
-// LFSR advance as a GF(2) leap of 5 word ops a clock, 2.84 G a launch, 42 us
-// at the card's 67 T/s non-tensor float32 rate (the count chip_smoke.py
-// makes).  So all three kernels are operation-bound.  The migration adds one
-// FFM pass and two block reductions per interval (~2% of an interval of 16
-// generations); K3 adds one state read and write per interval instead of
-// per launch.  The banks are clocked one bit at a time (9 ops a clock), the
-// simple form; the leap is a later optimisation.
+// What bounds them.  At the full-width shape (N=1024, V=8, P=21, 128
+// islands, 64 generations a launch) an island's HBM state is N*V + 2N +
+// V*N/2 + V*N = 22,528 words (88 KiB), so a launch moves 2 x 11 MiB: 7 us
+// at 3.35 TB/s.  The work is integer and float32 issue.  A generation of
+// an island clocks 2N + V*N/2 + V*P = 6,312 bank words (the mutation rows
+// at and past P are never drawn: they are advanced once a launch, about
+// 19 instructions a word through a nibble table), runs N tournaments,
+// N*V/2 crossovers and N fitness evaluations (N*V cosf for rastrigin).
+// chip_smoke.py counts the integer work in instructions (a logic
+// expression of up to three operands is one LOP3), two ways: against the
+// card's non-tensor float32 rate (0.024 ms a K1 launch), and per op class
+// (int32 at 64 a cycle an SM, fp32 at 128, conversions and MUFU at 16, 132
+// SMs: 0.057 ms, int32-bound); both say operation-bound.  In practice the
+// bound is the
+// issue rate of one island's warps: a generation has one barrier, and the
+// block's time is that of its slowest warp.
 //
-// What the design does about it.  An island's whole GA state (population,
-// offspring, fitness, the three LFSR banks) lives in dynamic shared memory
-// for all of a launch's generations: HBM sees one state read and one write
-// per launch (per interval in K3), and every tournament gather is one
-// shared-memory read (the TPU kernels' one-hot MXU lane has no purpose
-// here).  The block holds 4 * (N * (3.5 V + 3) + 3 V + 66) bytes (K2/K3:
-// V + 1 words more), which must fit the 227 KB a block can use; the Python
-// wrappers check this before launching.
+// What the design does about it.
+//   * An island's state lives in dynamic shared memory for all of a
+//     launch's generations, one block an island: HBM sees one state read
+//     and one write a launch (an interval in K3).
+//   * Variable-major layout: the population is [V][N] in shared memory
+//     (transposed at load and store; HBM keeps [K, N, V]), so the lanes of
+//     a warp run along N in every phase and the bank, offspring and decode
+//     accesses are free of bank conflicts; only the tournament's parent
+//     reads are random.
+//   * One thread a pair of individuals (a = 2pr, b = a + 1, at most 512
+//     threads): it clocks and draws its own selection, crossover and
+//     mutation words, runs the two tournaments, keeps the winners' indices
+//     in registers, reads the parents' words, writes the two children into
+//     the other of two population buffers and evaluates their fitness into
+//     the other of two fitness buffers.  Nothing it writes is read by
+//     another thread before the one block barrier of a generation.
+//   * The word-parallel LFSR advance (`lfsr_advance`): up to 22 clocks in
+//     one branch-free pass of 13-17 instructions (shifts and three-input
+//     logic), instead of 9 operations a clock.  It was the largest cost of a generation, so the
+//     kernels are also built for the paper's 3 clocks a draw as a
+//     compile-time constant, which folds every shift and mask; other
+//     counts take the run-time form.  The mutation rows at and past P are
+//     advanced once at the store, through a table of each nibble's advance
+//     (the advance is linear over GF(2)); the block holds only the rows
+//     below P, and only where they fit beside the rest (else they are
+//     clocked in place in the output bank in global memory, each word by
+//     the one thread that owns it, in the run-time form only).
+//   * The pair's two fitness evaluations run interleaved (`ffm<2>`) and the
+//     crossover loop is unrolled, so independent chains overlap.
+//   * The best fold: each warp leaves the best of its individuals in a
+//     per-buffer slot before the barrier; after it, the last warp alone
+//     (warp 0 has the mutation rows) folds the warp slots and copies the
+//     best row with one lane a variable, while the other warps go on.
+//   * No pointer array is indexed at run time (`Island::X`, `Y`, `rval`):
+//     the island's pointers stay in registers and every access compiles
+//     to a shared-memory instruction, with no stack frame.
+//   * The block holds 4 * (2NV + 4N + V*N/2 + V*P + 3V + 130) bytes, the
+//     V*P term only where it fits (K2/K3: V + 1 words more), 97.3 KiB at
+//     the full-width shape, so two island blocks of 512 threads (<= 64
+//     registers, __launch_bounds__(512, 2)) share an SM, and K2's 16
+//     clusters of 8 fit the card in one wave.  Every shape the layout
+//     before this one took still fits.  The Python wrappers check the
+//     footprint against the 227 KB a block can use before launching.  The card holds only 15 clusters of 8 with one
+//     island an SM, so the 16th shares SMs, which set the launch's pace.
 //
 // K2's ring.  The TPU kernel keeps every island of a replica group in one
 // VMEM block; a Hopper block is far smaller, so K2 gives each island its own
 // block and makes the I islands of a group one thread-block cluster
-// (I <= 8, the portable cluster size).  At the end of an interval each block
-// evaluates the migration fitness, finds its first-occurrence best and
-// worst slots, and copies its elite row into a V-word buffer; after a
-// cluster barrier it reads the buffer of island (rank - 1) mod I through
-// distributed shared memory (DSMEM), and after a second barrier — so no
-// block overwrites or leaves before its neighbour has read — splices it into
-// its worst slot.  The exchange never touches HBM.
+// (I <= 8, the portable cluster size).  At the end of an interval the
+// fitness buffer already holds the migration fitness (the last
+// generation's offspring); each block finds its first-occurrence best and
+// worst slots and copies its elite row into a V-word buffer; after a
+// cluster barrier it splices the buffer of island (rank - 1) mod I, read
+// through distributed shared memory (DSMEM), into its worst slot, and a
+// second barrier keeps every block from overwriting or leaving before its
+// neighbour has read.  The exchange never touches HBM.  The spliced row's
+// fitness is re-evaluated before the next interval.
 //
 // K3's tile.  On the TPU the streamed tile exists to double-buffer HBM
 // copies; on Hopper the blocks of a launch already run in parallel on 132
@@ -80,19 +121,26 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = 512;     // one thread a pair of individuals
+constexpr int kMinBlocks = 2;        // island blocks an SM can hold at once
 constexpr int kSmemLimit = 232448;   // 227 KB of dynamic shared memory a block
 constexpr int kMaxCluster = 8;       // portable thread-block cluster size
+constexpr int kMaxDevices = 64;
+constexpr int kPaperSteps = 3;       // clocks a draw built in as a constant
 
 enum Problem { kF1 = 0, kF2, kF3, kSphere, kRastrigin, kRosenbrock, kAckley };
 
-// The GA's shape and operator constants.
+// The GA's shape and operator constants; p is min(P, N).  mut_global: the
+// mutation rows below P stay in global memory (`Island::gmut`) because
+// they do not fit beside the rest of the block.
 struct Shape {
-  int n, v, c, idx_bits, cut_bits, p, steps, minimize, problem;
+  int n, v, c, idx_bits, cut_bits, p, steps, minimize, problem, mut_global;
 };
 
 // A stack of islands in global memory; island k's rows start at k times the
@@ -113,139 +161,243 @@ struct Stack {
   const float* span;         // [V] decode steps
 };
 
-// One island's state in dynamic shared memory.
+// One island's state in dynamic shared memory.  x and y are double
+// buffered: a generation reads buffer `cur` and writes buffer cur ^ 1.
+// Buffers are picked with X(b), Y(b), rval(b) rather than pointer arrays: an
+// array indexed at run time would put the struct in local memory and hide
+// from the compiler that every pointer here addresses shared memory.
 struct Island {
-  uint32_t* x;       // [N, V]
-  uint32_t* w;       // [N, V] tournament winners (scratch between phases)
-  float* y;          // [N]
+  uint32_t* x0;      // [V, N] population, variable-major (buffer 0)
+  uint32_t* x1;      //        (buffer 1)
+  float* y0;         // [N] fitness of x0
+  float* y1;         // [N] fitness of x1
   uint32_t* sel;     // [2, N]
   uint32_t* cross;   // [V, N/2]
-  uint32_t* mut;     // [V, N]
+  uint32_t* mut;     // [V, P] the mutation bank's rows below P
+  uint32_t* gmut;    // or, with S.mut_global, nullptr above and these rows
+                     // of this island's [V, N] bank in global memory
   float* lo;         // [V]
   float* span;       // [V]
   uint32_t* bx;      // [V] running best individual
   float* by;         // [1] (+1 spare)
-  float* rval;       // [32] block-reduction scratch
-  int* ridx;         // [32]
+  float* red;        // 2 x ([32] values, [32] indices): the per-warp best
+                     // of y0 and of y1; a scan after the generations uses
+                     // the idle one, the store the whole as its table
   uint32_t* elite;   // [V] epoch kernels: the elite a neighbour reads
   int* slot;         // [1] epoch kernels: a slot broadcast to the block
+  __device__ __forceinline__ uint32_t* X(int b) const { return b ? x1 : x0; }
+  __device__ __forceinline__ float* Y(int b) const { return b ? y1 : y0; }
+  __device__ __forceinline__ float* rval(int b) const { return red + 64 * b; }
+  __device__ __forceinline__ int* ridx(int b) const {
+    return (int*)(red + 64 * b + 32);
+  }
 };
 
-__host__ __device__ inline size_t smem_words(int n, int v) {
-  return 2 * (size_t)n * v          // population + offspring
-         + n                        // fitness
+// Words of a block of kernel `which` (0: K1; 1, 2: K2, K3) without the
+// mutation rows.
+__host__ inline size_t base_words(int which, int n, int v) {
+  return 2 * (size_t)n * v          // population, two buffers
+         + 2 * (size_t)n            // fitness, two buffers
          + 2 * (size_t)n            // selection bank
          + (size_t)v * (n / 2)      // crossover bank
-         + (size_t)v * n            // mutation bank
          + 3 * (size_t)v + 2        // lo, span, best x, best y, spare
-         + 64;                      // block-reduction scratch
+         + 2 * 64                   // reductions
+         + (which ? v + 1 : 0);     // K2/K3: elite row, slot
 }
 
-__host__ __device__ inline size_t epoch_smem_words(int n, int v) {
-  return smem_words(n, v) + v + 1;  // + elite row, slot
+// Whether the mutation rows below P stay in global memory: they do when
+// they would not fit beside the rest.
+__host__ inline bool rows_in_global(int which, int n, int v, int p) {
+  return 4 * (base_words(which, n, v) + (size_t)v * p) > (size_t)kSmemLimit;
 }
 
 __host__ inline int threads_for(int n) {
-  return n < 32 ? 32 : (n > kMaxThreads ? kMaxThreads : n);
+  const int pairs = n / 2;
+  return pairs < 32 ? 32 : (pairs > kMaxThreads ? kMaxThreads : pairs);
 }
 
-__device__ Island carve(uint32_t* smem, int n, int v) {
+// The block's layout for island `k` of the stack.
+__device__ __forceinline__ Island carve(uint32_t* smem, const Shape& S,
+                                        uint32_t* mut_out, size_t k) {
+  // x and sel first: their pair accesses are 8-byte vector loads
+  const int n = S.n, v = S.v, p = S.mut_global ? 0 : S.p;
   Island s;
-  s.x = smem;
-  s.w = s.x + (size_t)n * v;
-  s.y = (float*)(s.w + (size_t)n * v);
-  s.sel = (uint32_t*)(s.y + n);
-  s.cross = s.sel + 2 * n;
+  s.x0 = smem;
+  s.x1 = s.x0 + (size_t)n * v;
+  s.sel = s.x1 + (size_t)n * v;
+  s.y0 = (float*)(s.sel + 2 * n);
+  s.y1 = s.y0 + n;
+  s.cross = (uint32_t*)(s.y1 + n);
   s.mut = s.cross + (size_t)v * (n / 2);
-  s.lo = (float*)(s.mut + (size_t)v * n);
+  s.gmut = S.mut_global ? mut_out + k * v * n : nullptr;
+  s.lo = (float*)(s.mut + (size_t)v * p);
   s.span = s.lo + v;
   s.bx = (uint32_t*)(s.span + v);
   s.by = (float*)(s.bx + v);
-  s.rval = s.by + 2;
-  s.ridx = (int*)(s.rval + 32);
-  s.elite = (uint32_t*)(s.ridx + 32);
+  s.red = s.by + 2;
+  s.elite = (uint32_t*)(s.red + 2 * 64);
   s.slot = (int*)(s.elite + v);
   return s;
 }
 
-__device__ __forceinline__ uint32_t lfsr_clock(uint32_t s, int steps) {
-  // r^32 + r^22 + r^2 + 1: feedback s31 ^ s21 ^ s1 ^ s0 into bit 0
-  for (int t = 0; t < steps; ++t) {
-    uint32_t fb = ((s >> 31) ^ (s >> 21) ^ (s >> 1) ^ s) & 1u;
-    s = (s << 1) | fb;
+// `t` clocks of r^32 + r^22 + r^2 + 1 (feedback s31 ^ s21 ^ s1 ^ s0 into
+// bit 0, the register shifting left), up to 22 at a time.  The feedback of
+// clock k is f_k = s[31-k] ^ s[21-k] ^ f_{k-1} ^ f_{k-2}, with f_{-1} = s0
+// and f_{-2} = s1: for k < 22 every s term is an original bit, so the k
+// new low bits are the tap word (s >> (32-k)) ^ (s >> (22-k)), topped by
+// the two initial values, run through the XOR filter 1 / (1 + x + x^2) =
+// (1 + x) / (1 + x^3): a stride-3 prefix XOR by doubling, then one more
+// shift.  16 int32 operations a chunk of up to 4 clocks, 20 up to 22; up
+// to 22 clocks take one branch-free pass, and a `t` known when the kernel
+// is compiled folds every shift and mask to a constant.
+__device__ __forceinline__ uint32_t lfsr_advance(uint32_t s, int t) {
+  if (t <= 0) return s;
+  if (t <= 22) {
+    const uint32_t m = (1u << t) - 1u, m6 = t > 4 ? ~0u : 0u,
+                   m12 = t > 10 ? ~0u : 0u;
+    const uint32_t lo = s & 3u;
+    uint32_t e = (s >> (32 - t)) ^ ((s >> (22 - t)) & m) ^
+                 ((lo ^ (lo >> 1)) << t);
+    e ^= e >> 3;
+    e ^= (e >> 6) & m6;
+    e ^= (e >> 12) & m12;
+    return (s << t) | ((e ^ (e >> 1)) & m);
+  }
+  while (t > 0) {
+    const int k = t < 22 ? t : 22;
+    const uint32_t m = (1u << k) - 1u;
+    const uint32_t lo = s & 3u;
+    uint32_t e = (s >> (32 - k)) ^ ((s >> (22 - k)) & m) ^
+                 ((lo ^ (lo >> 1)) << k);
+    e ^= e >> 3;
+    if (k > 4) e ^= e >> 6;
+    if (k > 10) e ^= e >> 12;
+    s = (s << k) | ((e ^ (e >> 1)) & m);
+    t -= k;
   }
   return s;
 }
 
+// Clock the LFSR word at `m` (shared or global memory) by `t`; the draw.
+__device__ __forceinline__ uint32_t clock_word(uint32_t* m, int t) {
+  const uint32_t d = lfsr_advance(*m, t);
+  *m = d;
+  return d;
+}
+
+// Variable j of individual i of a variable-major population.
 struct Decoder {
-  const uint32_t* xi;
+  const uint32_t* x;
+  int n;
   uint32_t mask;
   const float* lo;
   const float* span;
-  __device__ __forceinline__ float operator()(int j) const {
-    return lo[j] + (float)(xi[j] & mask) * span[j];
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return lo[j] + (float)(x[(size_t)j * n + i] & mask) * span[j];
   }
 };
 
-__device__ float ffm(int problem, const Decoder& d, int v) {
+// The FFM of the K individuals i[0..K) into y[0..K): each follows the plain
+// version's operation order, and the K evaluations run interleaved, step by
+// step, so their dependency chains overlap (K = 2: a thread's pair).
+template <int K>
+__device__ __forceinline__ void ffm(int problem, const Decoder& d,
+                                    const int (&i)[K], int v, float (&y)[K]) {
   switch (problem) {
-    case kF1: {
-      float x = d(1);
-      return x * (x * x) - 15.0f * (x * x) + 500.0f;
-    }
+    case kF1:
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float x = d(i[k], 1);
+        y[k] = x * (x * x) - 15.0f * (x * x) + 500.0f;
+      }
+      return;
     case kF2:
-      return 8.0f * d(0) + (-4.0f * d(1) + 1020.0f);
-    case kF3: {
-      float a = d(0), b = d(1);
-      return sqrtf(fmaxf(a * a + b * b, 0.0f));
-    }
-    case kSphere: {
-      float a = d(0);
-      float acc = a * a;
-      for (int j = 1; j < v; ++j) {
-        float b = d(j);
-        acc = acc + b * b;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        y[k] = 8.0f * d(i[k], 0) + (-4.0f * d(i[k], 1) + 1020.0f);
+      return;
+    case kF3:
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float a = d(i[k], 0), b = d(i[k], 1);
+        y[k] = sqrtf(fmaxf(a * a + b * b, 0.0f));
       }
-      return acc;
-    }
-    case kRastrigin: {
-      float acc = 0.0f;
-      for (int j = 0; j < v; ++j) {
-        float a = d(j);
-        float t = a * a - 10.0f * cosf(6.283185307179586f * a) + 10.0f;
-        acc = j ? acc + t : t;
+      return;
+    case kSphere:
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float a = d(i[k], 0);
+        y[k] = a * a;
       }
-      return acc;
-    }
+      for (int j = 1; j < v; ++j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float b = d(i[k], j);
+          y[k] = y[k] + b * b;
+        }
+      return;
+    case kRastrigin:
+      for (int j = 0; j < v; ++j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float a = d(i[k], j);
+          float t = a * a - 10.0f * cosf(6.283185307179586f * a) + 10.0f;
+          y[k] = j ? y[k] + t : t;
+        }
+      return;
     case kRosenbrock: {
-      float acc = 0.0f;
-      float a = d(0);
-      for (int j = 0; j + 1 < v; ++j) {
-        float b = d(j + 1);
-        float dd = b - a * a;
-        float e = 1.0f - a;
-        float t = 100.0f * (dd * dd) + e * e;
-        acc = j ? acc + t : t;
-        a = b;
+      float a[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        a[k] = d(i[k], 0);
+        y[k] = 0.0f;
       }
-      return acc;
+      for (int j = 0; j + 1 < v; ++j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float b = d(i[k], j + 1);
+          float dd = b - a[k] * a[k];
+          float e = 1.0f - a[k];
+          float t = 100.0f * (dd * dd) + e * e;
+          y[k] = j ? y[k] + t : t;
+          a[k] = b;
+        }
+      return;
     }
     case kAckley: {
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int j = 0; j < v; ++j) {
-        float a = d(j);
-        float q = a * a;
-        float cs = cosf(6.283185307179586f * a);
-        s1 = j ? s1 + q : q;
-        s2 = j ? s2 + cs : cs;
+      float s1[K], s2[K];
+      for (int j = 0; j < v; ++j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float a = d(i[k], j);
+          float q = a * a;
+          float cs = cosf(6.283185307179586f * a);
+          s1[k] = j ? s1[k] + q : q;
+          s2[k] = j ? s2[k] + cs : cs;
+        }
+      const float fv = (float)v;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float m1 = s1[k] / fv, m2 = s2[k] / fv;
+        y[k] = -20.0f * expf(-0.2f * sqrtf(m1)) - expf(m2) + 20.0f +
+               2.718281828459045f;
       }
-      float fv = (float)v;
-      float m1 = s1 / fv, m2 = s2 / fv;
-      return -20.0f * expf(-0.2f * sqrtf(m1)) - expf(m2) + 20.0f +
-             2.718281828459045f;
+      return;
     }
   }
-  return __int_as_float(0x7fc00000);   // unknown id: NaN (the wrapper rejects it)
+#pragma unroll
+  for (int k = 0; k < K; ++k)   // unknown id: NaN (the wrapper rejects it)
+    y[k] = __int_as_float(0x7fc00000);
+}
+
+// Fitness of individual i of the variable-major population x.
+__device__ __forceinline__ float fitness(const Island& s, const Shape& S,
+                                         const uint32_t* x, int i) {
+  const int one[1] = {i};
+  float y[1];
+  ffm<1>(S.problem, Decoder{x, S.n, (1u << S.c) - 1u, s.lo, s.span}, one,
+         S.v, y);
+  return y[0];
 }
 
 // `o` replaces `b` when strictly better, or equal at a smaller index: the
@@ -267,154 +419,285 @@ __device__ __forceinline__ void warp_best(float& bv, int& bi, bool minimize) {
   }
 }
 
-// Index of the best fitness in sy[0..n) (first occurrence), valid in thread
-// 0.  Every thread of the block must call it.
-__device__ int block_best(const float* sy, int n, bool minimize, float* rval,
-                          int* ridx) {
-  const float sentinel = minimize ? INFINITY : -INFINITY;
-  float bv = sentinel;
+__device__ __forceinline__ bool fold_warp() {
+  return threadIdx.x >= blockDim.x - 32;
+}
+
+__device__ __forceinline__ float worst_value(bool minimize) {
+  return minimize ? INFINITY : -INFINITY;
+}
+
+// Lane 0 of each warp leaves the warp's best (value, index) in
+// rval(buf)[warp], ridx(buf)[warp].  Every thread of the block must call it.
+__device__ __forceinline__ void warp_partial(const Island& s, int buf,
+                                             float bv, int bi, bool minimize) {
+  warp_best(bv, bi, minimize);
+  if ((threadIdx.x & 31) == 0) {
+    s.rval(buf)[threadIdx.x >> 5] = bv;
+    s.ridx(buf)[threadIdx.x >> 5] = bi;
+  }
+}
+
+// The best over the warp partials rval(buf), ridx(buf), in every lane of
+// the calling warp.
+__device__ __forceinline__ void fold_partials(const Island& s, int buf,
+                                              bool minimize, float& bv,
+                                              int& bi) {
+  const int lane = threadIdx.x & 31, nwarps = (blockDim.x + 31) >> 5;
+  bv = lane < nwarps ? s.rval(buf)[lane] : worst_value(minimize);
+  bi = lane < nwarps ? s.ridx(buf)[lane] : 0x7fffffff;
+  warp_best(bv, bi, minimize);
+  bv = __shfl_sync(0xffffffffu, bv, 0);
+  bi = __shfl_sync(0xffffffffu, bi, 0);
+}
+
+// Index of the best value in y[0..n) (first occurrence) in every thread;
+// 0x7fffffff when every value is NaN, with rval(buf), ridx(buf) as scratch.
+// Every thread of the block must call it; it ends on a block barrier.
+__device__ __forceinline__
+int block_best(const Island& s, const float* y, int n, bool minimize,
+               int buf) {
+  float bv = worst_value(minimize);
   int bi = 0x7fffffff;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float yi = sy[i];
-    if (takes(yi, i, bv, bi, minimize)) {
-      bv = yi;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    if (takes(y[i], i, bv, bi, minimize)) {
+      bv = y[i];
       bi = i;
     }
-  }
-  warp_best(bv, bi, minimize);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    rval[warp] = bv;
-    ridx[warp] = bi;
-  }
+  warp_partial(s, buf, bv, bi, minimize);
   __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    bv = lane < nwarps ? rval[lane] : sentinel;
-    bi = lane < nwarps ? ridx[lane] : 0x7fffffff;
-    warp_best(bv, bi, minimize);
-  }
+  fold_partials(s, buf, minimize, bv, bi);
+  __syncthreads();          // the scratch is free again
   return bi;
 }
 
-// The migration rule's slot of sy[0..n), returned to every thread: the
-// first occurrence of the best value (worst with the sense flipped), or n
-// when any value is NaN.  Every thread of the block must call it.
-__device__ int block_slot(const Island& s, int n, bool minimize) {
+// The migration rule's slot of y[0..n), in every thread: the first
+// occurrence of the best value (worst with the sense flipped), or n when
+// any value is NaN; rval(buf), ridx(buf) are its scratch.  Every thread
+// of the block must call it.
+__device__ __forceinline__
+int block_slot(const Island& s, const float* y, int n, bool minimize,
+               int buf) {
   bool nan = false;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) nan |= isnan(s.y[i]);
-  int b = block_best(s.y, n, minimize, s.rval, s.ridx);
-  int any_nan = __syncthreads_or(nan);
-  if (threadIdx.x == 0) *s.slot = any_nan ? n : b;
-  __syncthreads();
-  return *s.slot;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) nan |= isnan(y[i]);
+  const int b = block_best(s, y, n, minimize, buf);
+  return __syncthreads_or(nan) ? n : b;
 }
 
-// Copy island `k` of the stack into shared memory and reset the best fold.
-__device__ void load_island(const Island& s, const Stack& g, const Shape& S,
-                            size_t k) {
-  const int n = S.n, v = S.v, half = n / 2;
+// The block's last warp (the fold warp; warp 0 has the mutation rows): fold
+// the best of Y(cur) (its warp partials) into the running best, the row
+// copied with one lane a variable.  X(cur) is not overwritten before the
+// generation's barrier, which the fold warp reaches only after the copy.
+__device__ __forceinline__
+void fold_best(const Island& s, const Shape& S, int cur) {
+  const bool minimize = S.minimize != 0;
+  float bv;
+  int bi;
+  fold_partials(s, cur, minimize, bv, bi);
+  const float by = *s.by;
+  if (minimize ? bv < by : bv > by) {
+    for (int j = threadIdx.x & 31; j < S.v; j += 32)
+      s.bx[j] = s.X(cur)[(size_t)j * S.n + bi];
+    __syncwarp();           // every lane has read *s.by
+    if ((threadIdx.x & 31) == 0) *s.by = bv;
+  }
+}
+
+// The fold warp: hand the running best to `best_x`/`best_y` and start a
+// new fold.
+__device__ __forceinline__
+void take_best(const Island& s, const Shape& S, uint32_t* best_x,
+               float* best_y) {
+  for (int j = threadIdx.x & 31; j < S.v; j += 32) {
+    best_x[j] = s.bx[j];
+    s.bx[j] = 0u;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    *best_y = *s.by;
+    *s.by = worst_value(S.minimize != 0);
+  }
+  __syncwarp();
+}
+
+// Copy island `k` of the stack into shared memory (the population
+// transposed to [V][N] in buffer 0) and reset the best fold.
+__device__ __forceinline__
+void load_island(const Island& s, const Stack& g, const Shape& S, size_t k) {
+  const int n = S.n, v = S.v, half = n / 2, p = S.p;
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t ox = k * n * v, osel = k * 2 * n, ocross = k * v * half,
                omut = k * v * n;
-  for (int i = tid; i < n * v; i += nt) s.x[i] = g.x_in[ox + i];
+  for (int e = tid; e < n * v; e += nt) {
+    const int i = e / v, j = e - i * v;
+    s.x0[(size_t)j * n + i] = g.x_in[ox + e];
+  }
   for (int i = tid; i < 2 * n; i += nt) s.sel[i] = g.sel_in[osel + i];
   for (int i = tid; i < v * half; i += nt) s.cross[i] = g.cross_in[ocross + i];
-  for (int i = tid; i < v * n; i += nt) s.mut[i] = g.mut_in[omut + i];
+  for (int e = tid; e < v * p; e += nt) {
+    const int j = e / p;
+    const size_t o = (size_t)j * n + (e - j * p);
+    if (s.gmut)
+      s.gmut[o] = g.mut_in[omut + o];
+    else
+      s.mut[e] = g.mut_in[omut + o];
+  }
   for (int j = tid; j < v; j += nt) {
     s.lo[j] = g.lo[j];
     s.span[j] = g.span[j];
     s.bx[j] = 0u;
   }
-  if (tid == 0) *s.by = S.minimize ? INFINITY : -INFINITY;
+  if (tid == 0) *s.by = worst_value(S.minimize != 0);
   __syncthreads();
 }
 
-// Write island `k`'s state, fitness and (track_best) best back.
-__device__ void store_island(const Island& s, const Stack& g, const Shape& S,
-                             size_t k, bool track_best) {
-  const int n = S.n, v = S.v, half = n / 2;
+// Write island `k`'s state (population x, fitness y) back; with gmut the
+// rows below P are there already.  The mutation
+// rows at and past P were never drawn: they leave advanced by `leap`
+// clocks, `steps` times the generations run since the load.  The advance
+// is linear over GF(2), so a word's is the XOR of the advances of its 8
+// nibbles, read from a table of 8 x 16 words built here in the reduction
+// scratch (free once the generations are done).  Every thread of the block
+// must call it.
+__device__ __forceinline__
+void store_island(const Island& s, const Stack& g, const Shape& S, size_t k,
+                  const uint32_t* x, const float* y, int leap,
+                  bool track_best) {
+  const int n = S.n, v = S.v, half = n / 2, p = S.p;
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t ox = k * n * v, osel = k * 2 * n, ocross = k * v * half,
                omut = k * v * n;
-  for (int i = tid; i < n * v; i += nt) g.x_out[ox + i] = s.x[i];
+  for (int e = tid; e < n * v; e += nt) {
+    const int i = e / v, j = e - i * v;
+    g.x_out[ox + e] = x[(size_t)j * n + i];
+  }
   for (int i = tid; i < 2 * n; i += nt) g.sel_out[osel + i] = s.sel[i];
   for (int i = tid; i < v * half; i += nt) g.cross_out[ocross + i] = s.cross[i];
-  for (int i = tid; i < v * n; i += nt) g.mut_out[omut + i] = s.mut[i];
-  for (int i = tid; i < n; i += nt) g.y_out[k * n + i] = s.y[i];
+  uint32_t* nib = (uint32_t*)s.red;
+  for (int e = tid; e < 128; e += nt)
+    nib[e] = lfsr_advance((uint32_t)(e & 15) << (4 * (e >> 4)), leap);
+  __syncthreads();
+  for (int j = 0; j < v; ++j)
+    for (int a = tid; a < n; a += nt) {
+      const size_t o = omut + (size_t)j * n + a;
+      if (a >= p) {
+        const uint32_t in = g.mut_in[o];
+        uint32_t w = 0u;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) w ^= nib[16 * q + ((in >> (4 * q)) & 15u)];
+        g.mut_out[o] = w;
+      } else if (!s.gmut) {
+        g.mut_out[o] = s.mut[j * p + a];
+      }
+    }
+  for (int i = tid; i < n; i += nt) g.y_out[k * n + i] = y[i];
   if (track_best) {
     for (int j = tid; j < v; j += nt) g.best_x[k * v + j] = s.bx[j];
     if (tid == 0) g.best_y[k] = *s.by;
   }
 }
 
-// FFM of the island's population into s.y, then a block barrier.
-__device__ void eval_ffm(const Island& s, const Shape& S) {
-  const uint32_t mask = (1u << S.c) - 1u;
+// Fitness of population x[buf] into y[buf] and, with `track_best`, the
+// warp partials of y[buf]; ends on a block barrier.  `row` < 0: every row;
+// 0 <= row < n: that row alone (a spliced row); row >= n: none, only the
+// partials.
+__device__ __forceinline__
+void evaluate(const Island& s, const Shape& S, int buf, bool track_best,
+              int row) {
+  const bool minimize = S.minimize != 0;
+  float bv = worst_value(minimize);
+  int bi = 0x7fffffff;
   for (int i = threadIdx.x; i < S.n; i += blockDim.x) {
-    Decoder d{s.x + (size_t)i * S.v, mask, s.lo, s.span};
-    s.y[i] = ffm(S.problem, d, S.v);
+    if (row < 0 || i == row) s.Y(buf)[i] = fitness(s, S, s.X(buf), i);
+    if (takes(s.Y(buf)[i], i, bv, bi, minimize)) {
+      bv = s.Y(buf)[i];
+      bi = i;
+    }
   }
+  if (track_best) warp_partial(s, buf, bv, bi, minimize);
   __syncthreads();
 }
 
-// One generation of the island in shared memory.  Every thread of the block
-// must call it; it ends on a block barrier.
-__device__ void generation(const Island& s, const Shape& S, bool track_best) {
-  const int n = S.n, v = S.v, half = n / 2;
-  const int tid = threadIdx.x, nt = blockDim.x;
+// One generation of the island in shared memory, from buffer `cur` into
+// cur ^ 1, with kSteps LFSR clocks a draw (0: S.steps, read at run time).
+// Every thread of the block must call it; it ends on the block barrier
+// after which X(cur ^ 1) holds the offspring and, with `eval`, Y(cur ^ 1)
+// their fitness (and, with track_best, its warp partials).
+template <int kSteps>
+__device__ __forceinline__
+void generation(const Island& s, const Shape& S, bool track_best, bool eval,
+                int cur) {
+  const int n = S.n, v = S.v, half = n / 2, p = S.p;
+  const int steps = kSteps ? kSteps : S.steps;
+  // only the run-time form takes mutation rows in global memory: a branch
+  // between the two places in the loop below cost the paper's form 6-10%
+  // of K1's time on an H100
+  const bool rows_global = kSteps == 0 && s.gmut != nullptr;
   const bool minimize = S.minimize != 0;
   const uint32_t mask = (1u << S.c) - 1u;
   const int sel_shift = 32 - S.idx_bits, cut_shift = 32 - S.cut_bits,
             mut_shift = 32 - S.c;
+  const uint32_t* xc = s.X(cur);
+  const float* yc = s.Y(cur);
+  uint32_t* xn = s.X(cur ^ 1);
+  float* yn = s.Y(cur ^ 1);
 
-  // ---- RNG: clock all three banks --------------------------------------
-  for (int i = tid; i < 2 * n; i += nt) s.sel[i] = lfsr_clock(s.sel[i], S.steps);
-  for (int i = tid; i < v * half; i += nt)
-    s.cross[i] = lfsr_clock(s.cross[i], S.steps);
-  for (int i = tid; i < v * n; i += nt) s.mut[i] = lfsr_clock(s.mut[i], S.steps);
+  if (track_best && fold_warp()) fold_best(s, S, cur);
 
-  // ---- FFM --------------------------------------------------------------
-  eval_ffm(s, S);
-
-  // ---- running best of the pre-update population (thread 0 only) --------
-  if (track_best) {
-    int b = block_best(s.y, n, minimize, s.rval, s.ridx);
-    if (tid == 0) {
-      float gb = s.y[b];
-      if (minimize ? gb < *s.by : gb > *s.by) {
-        *s.by = gb;
-        for (int j = 0; j < v; ++j) s.bx[j] = s.x[(size_t)b * v + j];
+  float bv = worst_value(minimize);
+  int bi = 0x7fffffff;
+  for (int pr = threadIdx.x; pr < half; pr += blockDim.x) {
+    const int a = 2 * pr, b = a + 1;
+    // ---- SM: the pair's two tournaments -----------------------------------
+    uint2 d1 = *(const uint2*)(s.sel + a), d2 = *(const uint2*)(s.sel + n + a);
+    d1.x = lfsr_advance(d1.x, steps);
+    d1.y = lfsr_advance(d1.y, steps);
+    d2.x = lfsr_advance(d2.x, steps);
+    d2.y = lfsr_advance(d2.y, steps);
+    *(uint2*)(s.sel + a) = d1;
+    *(uint2*)(s.sel + n + a) = d2;
+    int i1 = (int)(d1.x >> sel_shift), i2 = (int)(d2.x >> sel_shift);
+    const int wa = (minimize ? yc[i1] <= yc[i2] : yc[i1] >= yc[i2]) ? i1 : i2;
+    i1 = (int)(d1.y >> sel_shift);
+    i2 = (int)(d2.y >> sel_shift);
+    const int wb = (minimize ? yc[i1] <= yc[i2] : yc[i1] >= yc[i2]) ? i1 : i2;
+    // ---- CM + MM: per variable, crossover then XOR mutation ---------------
+#pragma unroll 4
+    for (int j = 0; j < v; ++j) {
+      const size_t row = (size_t)j * n;
+      uint32_t cut = clock_word(s.cross + (size_t)j * half + pr, steps) >>
+                     cut_shift;
+      cut = cut < (uint32_t)S.c ? cut : (uint32_t)S.c;
+      const uint32_t sm = mask >> cut;
+      const uint32_t w1 = xc[row + wa], w2 = xc[row + wb];
+      uint32_t z1 = (w1 & ~sm) | (w2 & sm);
+      uint32_t z2 = (w2 & ~sm) | (w1 & sm);
+      if (a < p)
+        z1 ^= (rows_global ? clock_word(s.gmut + row + a, steps)
+                           : clock_word(s.mut + j * p + a, steps)) >>
+              mut_shift;
+      if (b < p)
+        z2 ^= (rows_global ? clock_word(s.gmut + row + b, steps)
+                           : clock_word(s.mut + j * p + b, steps)) >>
+              mut_shift;
+      *(uint2*)(xn + row + a) = make_uint2(z1, z2);
+    }
+    // ---- FFM of the two offspring -------------------------------------------
+    if (eval) {
+      const int ab[2] = {a, b};
+      float y[2];
+      ffm<2>(S.problem, Decoder{xn, n, mask, s.lo, s.span}, ab, v, y);
+      *(float2*)(yn + a) = make_float2(y[0], y[1]);
+      if (takes(y[0], a, bv, bi, minimize)) {
+        bv = y[0];
+        bi = a;
+      }
+      if (takes(y[1], b, bv, bi, minimize)) {
+        bv = y[1];
+        bi = b;
       }
     }
   }
-
-  // ---- SM: 2-way tournaments, one shared-memory read per contestant -----
-  for (int i = tid; i < n; i += nt) {
-    int i1 = (int)(s.sel[i] >> sel_shift);
-    int i2 = (int)(s.sel[n + i] >> sel_shift);
-    float y1 = s.y[i1], y2 = s.y[i2];
-    bool first = minimize ? (y1 <= y2) : (y1 >= y2);
-    const uint32_t* src = s.x + (size_t)(first ? i1 : i2) * v;
-    for (int j = 0; j < v; ++j) s.w[(size_t)i * v + j] = src[j];
-  }
-  __syncthreads();
-
-  // ---- CM + MM: per pair and variable, crossover then XOR mutation ------
-  for (int q = tid; q < half * v; q += nt) {
-    int pr = q / v, j = q - pr * v;
-    int a = 2 * pr, b = a + 1;
-    uint32_t cut = s.cross[(size_t)j * half + pr] >> cut_shift;
-    cut = cut < (uint32_t)S.c ? cut : (uint32_t)S.c;
-    uint32_t sm = mask >> cut;
-    uint32_t w1 = s.w[(size_t)a * v + j], w2 = s.w[(size_t)b * v + j];
-    uint32_t z1 = (w1 & ~sm) | (w2 & sm);
-    uint32_t z2 = (w2 & ~sm) | (w1 & sm);
-    if (a < S.p) z1 ^= s.mut[(size_t)j * n + a] >> mut_shift;
-    if (b < S.p) z2 ^= s.mut[(size_t)j * n + b] >> mut_shift;
-    s.x[(size_t)a * v + j] = z1;
-    s.x[(size_t)b * v + j] = z2;
-  }
+  if (eval && track_best) warp_partial(s, cur ^ 1, bv, bi, minimize);
   __syncthreads();
 }
 
@@ -422,13 +705,20 @@ __device__ void generation(const Island& s, const Shape& S, bool track_best) {
 // K1: `gens` generations of each island of the stack, one block an island.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxThreads)
+template <int kSteps>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ga_generation(const Stack g, const Shape S, int gens, int track_best) {
   extern __shared__ uint32_t smem[];
-  const Island s = carve(smem, S.n, S.v);
+  const Island s = carve(smem, S, g.mut_out, blockIdx.x);
+  const bool tb = track_best != 0;
   load_island(s, g, S, blockIdx.x);
-  for (int t = 0; t < gens; ++t) generation(s, S, track_best != 0);
-  store_island(s, g, S, blockIdx.x, track_best != 0);
+  evaluate(s, S, 0, tb, -1);
+  int cur = 0;
+  for (int t = 0; t < gens; ++t, cur ^= 1)
+    generation<kSteps>(s, S, tb, t + 1 < gens, cur);
+  // y: the fitness of the last pre-update population
+  store_island(s, g, S, blockIdx.x, s.X(cur), s.Y(cur ^ 1), gens * S.steps,
+               tb);
 }
 
 // ---------------------------------------------------------------------------
@@ -443,25 +733,27 @@ struct Epoch {
 };
 
 // The ring step of one interval, between the blocks of a cluster through
-// distributed shared memory; s.y holds the migration fitness.
-__device__ void ring_step(const Island& s, const Shape& S, const Epoch& E) {
+// distributed shared memory; y[cur] holds the migration fitness.  Returns
+// the slot the block spliced, or n.
+__device__ __forceinline__
+int ring_step(const Island& s, const Shape& S, const Epoch& E, int cur) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n = S.n, v = S.v, tid = threadIdx.x, nt = blockDim.x;
   const int rank = (int)cluster.block_rank();
   const bool minimize = S.minimize != 0;
-  const int b = block_slot(s, n, minimize);
-  const int w = block_slot(s, n, !minimize);
+  uint32_t* x = s.X(cur);
+  // rval(cur ^ 1) is idle: its partials were folded in the last generation
+  const int b = block_slot(s, s.Y(cur), n, minimize, cur ^ 1);
+  const int w = block_slot(s, s.Y(cur), n, !minimize, cur ^ 1);
   for (int j = tid; j < v; j += nt)
-    s.elite[j] = b < n ? s.x[(size_t)b * v + j] : 0u;
+    s.elite[j] = b < n ? x[(size_t)j * n + b] : 0u;
   cluster.sync();           // every elite of the cluster is in place
   // island `rank` takes the elite of island rank - 1 (island 0: I - 1)
   const uint32_t* src =
       cluster.map_shared_rank(s.elite, (rank + E.islands - 1) % E.islands);
-  for (int j = tid; j < v; j += nt) s.w[j] = src[j];
-  cluster.sync();           // no block overwrites or leaves before its
-                            // neighbour has read its elite
-  if (!(E.boundary && rank == 0) && w < n)
-    for (int j = tid; j < v; j += nt) s.x[(size_t)w * v + j] = s.w[j];
+  const bool splice = !(E.boundary && rank == 0) && w < n;
+  if (splice)
+    for (int j = tid; j < v; j += nt) x[(size_t)j * n + w] = src[j];
   if (E.boundary) {
     const int group = blockIdx.x / E.islands;
     if (rank == E.islands - 1)
@@ -469,32 +761,35 @@ __device__ void ring_step(const Island& s, const Shape& S, const Epoch& E) {
         E.send_elite[(size_t)group * v + j] = s.elite[j];
     if (rank == 0 && tid == 0) E.worst0[group] = w;
   }
-  __syncthreads();
+  cluster.sync();           // no block overwrites or leaves before its
+                            // neighbour has read its elite
+  return splice ? w : n;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+template <int kSteps>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ga_epoch(const Stack g, const Shape S, const Epoch E) {
   extern __shared__ uint32_t smem[];
-  const Island s = carve(smem, S.n, S.v);
-  const int v = S.v, tid = threadIdx.x, nt = blockDim.x;
+  const Island s = carve(smem, S, g.mut_out, blockIdx.x);
   load_island(s, g, S, blockIdx.x);
+  evaluate(s, S, 0, true, -1);
+  int cur = 0;
   for (int it = 0; it < E.intervals; ++it) {
-    for (int t = 0; t < E.migrate_every; ++t) generation(s, S, true);
-    // the interval's best, then a fresh fold for the next interval (the
-    // barrier in eval_ffm orders the reset before the next fold)
-    const size_t o = (size_t)it * gridDim.x + blockIdx.x;
-    for (int j = tid; j < v; j += nt) {
-      g.best_x[o * v + j] = s.bx[j];
-      s.bx[j] = 0u;
+    for (int t = 0; t < E.migrate_every; ++t, cur ^= 1)
+      generation<kSteps>(s, S, true, true, cur);
+    // the interval's best, then a fresh fold for the next interval
+    if (fold_warp()) {
+      const size_t o = (size_t)it * gridDim.x + blockIdx.x;
+      take_best(s, S, g.best_x + o * S.v, g.best_y + o);
     }
-    if (tid == 0) {
-      g.best_y[o] = *s.by;
-      *s.by = S.minimize ? INFINITY : -INFINITY;
+    if (E.migrate) {
+      const int w = ring_step(s, S, E, cur);
+      if (it + 1 < E.intervals) evaluate(s, S, cur, true, w);
     }
-    eval_ffm(s, S);         // migration fitness of the final populations
-    if (E.migrate) ring_step(s, S, E);
   }
-  store_island(s, g, S, blockIdx.x, false);   // y: the pre-splice fitness
+  // y: the final interval's migration fitness (pre-splice)
+  store_island(s, g, S, blockIdx.x, s.X(cur), s.Y(cur),
+               E.intervals * E.migrate_every * S.steps, false);
 }
 
 // ---------------------------------------------------------------------------
@@ -507,10 +802,10 @@ struct Streamed {
   int* worst_idx;            // [G, I]    pre-splice worst slots
 };
 
-__global__ void __launch_bounds__(kMaxThreads)
+template <int kSteps>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
   extern __shared__ uint32_t smem[];
-  const Island s = carve(smem, S.n, S.v);
   const int n = S.n, v = S.v, tid = threadIdx.x, nt = blockDim.x;
   const bool minimize = S.minimize != 0;
   const int tiles = T.islands / T.tile;
@@ -518,24 +813,96 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
                        (size_t)(blockIdx.x % tiles) * T.tile;
   for (int t = 0; t < T.tile; ++t) {
     const size_t k = first + t;
+    const Island s = carve(smem, S, g.mut_out, k);
     load_island(s, g, S, k);
-    for (int e = 0; e < T.migrate_every; ++e) generation(s, S, true);
-    eval_ffm(s, S);         // migration fitness of the final population
-    if (T.migrate) {
-      const int b = block_slot(s, n, minimize);
-      const int w = block_slot(s, n, !minimize);
+    evaluate(s, S, 0, true, -1);
+    int cur = 0;
+    for (int e = 0; e < T.migrate_every; ++e, cur ^= 1)
+      generation<kSteps>(s, S, true, true, cur);
+    if (T.migrate) {        // y[cur]: the migration fitness
+      const int b = block_slot(s, s.Y(cur), n, minimize, cur ^ 1);
+      const int w = block_slot(s, s.Y(cur), n, !minimize, cur ^ 1);
       for (int j = tid; j < v; j += nt)
-        T.elite_x[k * v + j] = b < n ? s.x[(size_t)b * v + j] : 0u;
+        T.elite_x[k * v + j] = b < n ? s.X(cur)[(size_t)j * n + b] : 0u;
       if (tid == 0) T.worst_idx[k] = w;
     }
-    store_island(s, g, S, k, true);
+    store_island(s, g, S, k, s.X(cur), s.Y(cur), T.migrate_every * S.steps,
+                 true);
     __syncthreads();        // the next island's load overwrites what the
                             // store reads
   }
 }
 
-bool bad_shape(size_t smem, int n, int v, int c) {
-  return smem > (size_t)kSmemLimit || n < 2 || v < 1 || c < 1 || c > 31;
+bool bad_shape(size_t smem, int n, int v, int c, int p, int steps) {
+  return smem > (size_t)kSmemLimit || n < 2 || n % 2 || v < 1 || c < 1 ||
+         c > 31 || p < 0 || p > n || steps < 0;
+}
+
+// Once a kernel and device: the dynamic shared memory limit raised to all a
+// block can use, and the carveout set to all shared memory, so two island
+// blocks can share an SM.  Setting an attribute twice does no harm, so two
+// threads that race to the first launch need no lock.
+cudaError_t allow_smem(const void* kernel, int which) {
+  static std::atomic<bool> allowed[6][kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<bool>& done = allowed[which][dev];
+  if (done.load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e == cudaSuccess) done.store(true, std::memory_order_release);
+  return e;
+}
+
+template <int kSteps>
+const void* kernel_built(int which) {
+  switch (which) {
+    case 0: return (const void*)ga_generation<kSteps>;
+    case 1: return (const void*)ga_epoch<kSteps>;
+    case 2: return (const void*)ga_streamed_epoch<kSteps>;
+  }
+  return nullptr;
+}
+
+// The build of kernel `which` (0: K1, 1: K2, 2: K3) a shape takes: the
+// paper's clocks a draw as a constant (kPaperSteps) where the mutation rows
+// below P stay in shared memory, else the run-time form (0).
+int form_of(int which, int n, int v, int p, int steps) {
+  p = p < n ? p : n;
+  return steps == kPaperSteps && !rows_in_global(which, n, v, p) ? kPaperSteps
+                                                                 : 0;
+}
+
+// Kernel `which` in build `form`, and its slot in allow_smem's table.
+const void* kernel_of(int which, int form) {
+  return form == kPaperSteps ? kernel_built<kPaperSteps>(which)
+                             : kernel_built<0>(which);
+}
+
+int slot_of(int which, int form) {
+  return 2 * which + (form == kPaperSteps);
+}
+
+// Bytes a block of kernel `which` takes: the mutation rows below P
+// included unless they stay in global memory.
+size_t smem_of(int which, int n, int v, int p) {
+  p = p < n ? p : n;        // rows past N are none
+  return 4 * (base_words(which, n, v) +
+              (rows_in_global(which, n, v, p) ? 0 : (size_t)v * p));
+}
+
+// The kernel's Shape; p is taken as min(P, N).
+Shape shape_of(int which, int n, int v, int c, int idx_bits, int cut_bits,
+               int p, int steps, int minimize, int problem) {
+  p = p < n ? p : n;
+  return Shape{n, v, c, idx_bits, cut_bits, p, steps, minimize, problem,
+               (int)rows_in_global(which, n, v, p)};
 }
 
 Stack make_stack(const void* x_in, const void* sel_in, const void* cross_in,
@@ -575,13 +942,15 @@ struct Launch {
 
 extern "C" {
 
-size_t ga_step_smem_bytes(int n, int v) { return 4 * smem_words(n, v); }
+size_t ga_step_smem_bytes(int n, int v, int p) { return smem_of(0, n, v, p); }
 
-size_t ga_epoch_smem_bytes(int n, int v) { return 4 * epoch_smem_words(n, v); }
+size_t ga_epoch_smem_bytes(int n, int v, int p) { return smem_of(1, n, v, p); }
 
 int ga_step_smem_limit() { return kSmemLimit; }
 
 int ga_step_max_cluster() { return kMaxCluster; }
+
+int ga_step_threads(int n) { return threads_for(n); }
 
 const char* ga_step_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -596,17 +965,20 @@ int ga_step_launch(const void* x_in, const void* sel_in, const void* cross_in,
                    int replicas, int n, int v, int c, int idx_bits,
                    int cut_bits, int p, int steps, int minimize, int problem,
                    int gens, int track_best, void* stream) {
-  size_t smem = 4 * smem_words(n, v);
-  if (bad_shape(smem, n, v, c) || replicas < 1)
+  const size_t smem = smem_of(0, n, v, p);
+  if (bad_shape(smem, n, v, c, p, steps) || replicas < 1 || gens < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      ga_generation, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int form = form_of(0, n, v, p, steps);
+  cudaError_t e = allow_smem(kernel_of(0, form), slot_of(0, form));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
                              span);
-  const Shape S{n, v, c, idx_bits, cut_bits, p, steps, minimize, problem};
-  ga_generation<<<replicas, threads_for(n), smem, (cudaStream_t)stream>>>(
+  const Shape S = shape_of(0, n, v, c, idx_bits, cut_bits, p, steps,
+                           minimize, problem);
+  auto* kernel = form == kPaperSteps ? ga_generation<kPaperSteps>
+                                     : ga_generation<0>;
+  kernel<<<replicas, threads_for(n), smem, (cudaStream_t)stream>>>(
       g, S, gens, track_best);
   return (int)cudaGetLastError();
 }
@@ -622,35 +994,61 @@ int ga_epoch_launch(const void* x_in, const void* sel_in,
                     int c, int idx_bits, int cut_bits, int p, int steps,
                     int minimize, int problem, int migrate_every,
                     int intervals, int migrate, int boundary, void* stream) {
-  size_t smem = 4 * epoch_smem_words(n, v);
-  if (bad_shape(smem, n, v, c) || groups < 1 || islands < 1 ||
+  const size_t smem = smem_of(1, n, v, p);
+  if (bad_shape(smem, n, v, c, p, steps) || groups < 1 || islands < 1 ||
       (migrate && islands > kMaxCluster) || migrate_every < 1 ||
       intervals < 1 || (boundary && (!migrate || intervals != 1)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      ga_epoch, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int form = form_of(1, n, v, p, steps);
+  cudaError_t e = allow_smem(kernel_of(1, form), slot_of(1, form));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
                              span);
-  const Shape S{n, v, c, idx_bits, cut_bits, p, steps, minimize, problem};
+  const Shape S = shape_of(1, n, v, c, idx_bits, cut_bits, p, steps,
+                           minimize, problem);
   const Epoch E{islands, migrate_every, intervals, migrate, boundary,
                 (uint32_t*)send_elite, (int*)worst0};
   Launch L(groups * islands, n, smem, stream, migrate ? islands : 0);
-  e = cudaLaunchKernelEx(&L.cfg, ga_epoch, g, S, E);
+  auto* kernel = form == kPaperSteps ? ga_epoch<kPaperSteps> : ga_epoch<0>;
+  e = cudaLaunchKernelEx(&L.cfg, kernel, g, S, E);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// How many clusters of `islands` K2 blocks at (n, v) the card holds at once
-// (cudaOccupancyMaxActiveClusters), into *out; returns the cudaError_t.
-int ga_epoch_max_active_clusters(int n, int v, int islands, int* out) {
-  size_t smem = 4 * epoch_smem_words(n, v);
-  cudaError_t e = cudaFuncSetAttribute(
-      ga_epoch, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// How many clusters of `islands` K2 blocks at (n, v, p, steps) the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out; returns the
+// cudaError_t.
+int ga_epoch_max_active_clusters(int n, int v, int p, int steps, int islands,
+                                 int* out) {
+  const size_t smem = smem_of(1, n, v, p);
+  const int form = form_of(1, n, v, p, steps);
+  cudaError_t e = allow_smem(kernel_of(1, form), slot_of(1, form));
   if (e != cudaSuccess) return (int)e;
   Launch L(islands, n, smem, nullptr, islands);
-  return (int)cudaOccupancyMaxActiveClusters(out, ga_epoch, &L.cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel_of(1, form),
+                                             &L.cfg);
+}
+
+// Kernel `which` (0: K1, 1: K2, 2: K3) as compiled for `steps` clocks a
+// draw: registers a thread, local (spill and stack) bytes a thread, and
+// the blocks an SM holds at (n, v, p)
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int* regs,
+                         int* local_bytes, int* blocks_per_sm) {
+  const int form = form_of(which, n, v, p, steps);
+  const void* kernel = kernel_of(which, form);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_of(which, n, v, p);
+  cudaError_t e = allow_smem(kernel, slot_of(which, form));
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, threads_for(n), smem);
 }
 
 // K3: `groups` x `islands / tile` blocks, each walking `tile` islands.
@@ -663,22 +1061,24 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
                        int n, int v, int c, int idx_bits, int cut_bits, int p,
                        int steps, int minimize, int problem,
                        int migrate_every, int migrate, void* stream) {
-  size_t smem = 4 * epoch_smem_words(n, v);
-  if (bad_shape(smem, n, v, c) || groups < 1 || islands < 1 || tile < 1 ||
-      islands % tile || migrate_every < 1)
+  const size_t smem = smem_of(2, n, v, p);
+  if (bad_shape(smem, n, v, c, p, steps) || groups < 1 || islands < 1 ||
+      tile < 1 || islands % tile || migrate_every < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      ga_streamed_epoch, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const int form = form_of(2, n, v, p, steps);
+  cudaError_t e = allow_smem(kernel_of(2, form), slot_of(2, form));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
                              span);
-  const Shape S{n, v, c, idx_bits, cut_bits, p, steps, minimize, problem};
+  const Shape S = shape_of(2, n, v, c, idx_bits, cut_bits, p, steps,
+                           minimize, problem);
   const Streamed T{islands, tile, migrate_every, migrate, (uint32_t*)elite_x,
                    (int*)worst_idx};
-  ga_streamed_epoch<<<groups * (islands / tile), threads_for(n), smem,
-                      (cudaStream_t)stream>>>(g, S, T);
+  auto* kernel = form == kPaperSteps ? ga_streamed_epoch<kPaperSteps>
+                                     : ga_streamed_epoch<0>;
+  kernel<<<groups * (islands / tile), threads_for(n), smem,
+           (cudaStream_t)stream>>>(g, S, T);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,8 @@
 
 namespace {
 
+constexpr int kThreads = 256;
+
 __global__ void lfsr_advance(const uint32_t* in, uint32_t* out, size_t n,
                              int steps) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -42,12 +44,24 @@ const char* lfsr_advance_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The kernel as compiled: registers and local bytes a thread
+// (cudaFuncGetAttributes), and the blocks of kThreads an SM holds.
+int lfsr_advance_attrs(int* regs, int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, (const void*)lfsr_advance);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, lfsr_advance, kThreads, 0);
+}
+
 // Advance `n` words of `in` into `out` (device pointers, contiguous) on
 // `stream`; returns the cudaError_t of the launch (0 = queued).
 int lfsr_advance_launch(const void* in, void* out, long long n, int steps,
                         void* stream) {
   if (n < 1 || steps < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  const int threads = kThreads;
   long long blocks = (n + threads - 1) / threads;
   if (blocks > 132 * 64) blocks = 132 * 64;   // grid-stride past ~8 waves
   lfsr_advance<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(

@@ -38,12 +38,14 @@ Contracts (the JAX package's kernels, on int32 words):
       int32[G, I, V]), plus (elite_x int32[G, I, V], worst_idx int32[G, I])
       with `migrate`.
 
-Each kernel holds one island per thread block with its whole state in
-shared memory (see the note at the top of the CUDA source), so (N, V) must
-fit `SMEM_LIMIT`; K2's ring makes the islands of a group one thread-block
-cluster, at most `MAX_CLUSTER`.  `hopper_reason` says why a shape or a
-fitness cannot run, and the epoch planner (`epoch_mode_candidates`) which
-launch shapes an island-ring spec can take on this card.
+Each kernel holds one island per thread block with its state in shared
+memory (the mutation rows past P, never drawn, stay in global memory, and so
+do the rows below P where they do not fit; see the note at the top of the
+CUDA source), so (N, V) must fit `SMEM_LIMIT`; K2's ring makes the islands
+of a group one thread-block cluster, at most `MAX_CLUSTER`.  `hopper_reason`
+says why a shape or a fitness cannot run, and the epoch planner
+(`epoch_mode_candidates`) which launch shapes an island-ring spec can take
+on this card.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ LAUNCHES: Dict[str, int] = {"ga_generation": 0, "ga_epoch": 0,
                             "ga_streamed_epoch": 0}
 
 SMEM_LIMIT = 232448            # bytes of shared memory a Hopper block can use
+# the kernel's own copy of that limit (kSmemLimit), which decides where the
+# mutation rows below P live, whatever limit a caller checks against
+_LAYOUT_LIMIT = SMEM_LIMIT
 MAX_CLUSTER = 8                # portable thread-block cluster size (K2 ring)
 
 # the built-in problems the kernel's FFM stage implements, by kernel id
@@ -76,19 +81,32 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def smem_bytes(n: int, v: int) -> int:
-    """Shared memory one block takes for a replica of shape (N, V): the
-    population and offspring, the fitness vector, the three LFSR banks, the
-    decode constants, the best individual and the reduction scratch (the
-    layout in ``csrc/ga_step.cu``)."""
-    return 4 * (2 * n * v + n + 2 * n + v * (n // 2) + v * n + 3 * v + 2
-                + 64)
+def _block_bytes(n: int, v: int, p: int, extra: int) -> int:
+    """Bytes of a block with `extra` words beyond K1's layout; the mutation
+    rows below P count only where they fit (else they stay in global
+    memory)."""
+    base = 4 * (2 * n * v + 4 * n + v * (n // 2) + 3 * v + 2 + 2 * 64
+                + extra)
+    rows = base + 4 * v * min(p, n)
+    return rows if rows <= _LAYOUT_LIMIT else base
 
 
-def epoch_smem_bytes(n: int, v: int) -> int:
-    """Shared memory one K2 or K3 block takes for an island of shape (N, V):
-    K1's layout plus the elite row a ring neighbour reads and one slot."""
-    return smem_bytes(n, v) + 4 * (v + 1)
+def smem_bytes(n: int, v: int, p: int) -> int:
+    """Shared memory one block takes for a replica of shape (N, V) that
+    mutates its first P rows: the population and the fitness vector, each
+    double buffered, the selection and crossover banks, the mutation bank's
+    rows below P where they fit beside the rest (the rows at and past P are
+    never drawn and stay in global memory, as do the rows below P that do
+    not fit), the decode constants, the best individual and the reduction
+    scratch (the layout in ``csrc/ga_step.cu``)."""
+    return _block_bytes(n, v, p, 0)
+
+
+def epoch_smem_bytes(n: int, v: int, p: int) -> int:
+    """Shared memory one K2 or K3 block takes for an island of shape (N, V)
+    with P mutated rows: K1's layout plus the elite row a ring neighbour
+    reads and one slot."""
+    return _block_bytes(n, v, p, v + 1)
 
 
 def problem_id(program: F.FitnessProgram) -> Optional[int]:
@@ -109,7 +127,8 @@ def hopper_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
     must be a power of two on any lane; a pinned onehot lane keeps the JAX
     package's N cap so a spec validates the same way in both packages; the
     fitness needs an FFM stage in the kernel; the replica's state must fit
-    a block's shared memory."""
+    a block's shared memory (the mutation rows below P only where they
+    fit)."""
     if cfg.n & (cfg.n - 1):
         return (f"N={cfg.n}: the fused kernel path draws tournament indices "
                 "from the top idx_bits LFSR bits and requires a power-of-two "
@@ -124,13 +143,13 @@ def hopper_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
                 "the CUDA kernel implements the built-in problems "
                 f"{sorted(PROBLEM_IDS)}; blackbox and user-registered "
                 "fitness run on 'reference'")
-    need = smem_bytes(cfg.n, cfg.v)
+    need = smem_bytes(cfg.n, cfg.v, cfg.p)
     if need > SMEM_LIMIT:
-        return (f"N={cfg.n}, V={cfg.v} needs {need} bytes of shared memory "
-                f"per replica, past the {SMEM_LIMIT}-byte limit of one "
-                "Hopper thread block (the kernel keeps a replica's whole "
-                "state in shared memory); use a smaller N or V, or "
-                "'reference'")
+        return (f"N={cfg.n}, V={cfg.v}, P={cfg.p} needs {need} bytes of "
+                f"shared memory per replica, past the {SMEM_LIMIT}-byte "
+                "limit of one Hopper thread block (the kernel keeps a "
+                "replica's state in shared memory); use a smaller N or V, "
+                "or 'reference'")
     return None
 
 
@@ -201,11 +220,14 @@ def kernel_library():
     lib.ga_epoch_launch.restype = i
     lib.ga_streamed_launch.argtypes = [p] * 15 + [i] * 14 + [p]
     lib.ga_streamed_launch.restype = i
-    lib.ga_epoch_max_active_clusters.argtypes = [i, i, i,
-                                                 ctypes.POINTER(i)]
+    lib.ga_epoch_max_active_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.ga_epoch_max_active_clusters.restype = i
+    lib.ga_step_kernel_attrs.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 3
+    lib.ga_step_kernel_attrs.restype = i
+    lib.ga_step_threads.argtypes = [i]
+    lib.ga_step_threads.restype = i
     for fn in (lib.ga_step_smem_bytes, lib.ga_epoch_smem_bytes):
-        fn.argtypes = [i, i]
+        fn.argtypes = [i, i, i]
         fn.restype = ctypes.c_size_t
     for fn in (lib.ga_step_smem_limit, lib.ga_step_max_cluster):
         fn.argtypes = []
@@ -249,7 +271,7 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             x.data_ptr(), sel.data_ptr(), cross.data_ptr(), mut.data_ptr(),
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
             bx.data_ptr(), lo.data_ptr(), span.data_ptr(),
-            r, n, v, cfg.c, cfg.idx_bits, cfg.cut_bits, cfg.p,
+            r, n, v, cfg.c, cfg.idx_bits, cfg.cut_bits, min(cfg.p, n),
             cfg.steps_per_draw, int(cfg.minimize), problem_id(program), gens,
             int(track_best), stream)
     _check_launch(err, "ga_step")
@@ -271,11 +293,11 @@ def _check_launch(err: int, what: str) -> None:
 
 def epoch_smem_reason(cfg: GAConfig) -> Optional[str]:
     """None when one island fits a K2/K3 block's shared memory, else why."""
-    need = epoch_smem_bytes(cfg.n, cfg.v)
+    need = epoch_smem_bytes(cfg.n, cfg.v, cfg.p)
     if need > SMEM_LIMIT:
-        return (f"N={cfg.n}, V={cfg.v} needs {need} bytes of shared memory "
-                "per island block of the epoch kernels, past the "
-                f"{SMEM_LIMIT}-byte limit of one Hopper thread block")
+        return (f"N={cfg.n}, V={cfg.v}, P={cfg.p} needs {need} bytes of "
+                "shared memory per island block of the epoch kernels, past "
+                f"the {SMEM_LIMIT}-byte limit of one Hopper thread block")
     return None
 
 
@@ -359,10 +381,32 @@ def max_active_clusters(cfg: GAConfig, i_local: int) -> int:
     import ctypes
     lib = kernel_library()
     out = ctypes.c_int(0)
-    _check_launch(lib.ga_epoch_max_active_clusters(cfg.n, cfg.v, i_local,
-                                                   ctypes.byref(out)),
-                  "ga_epoch occupancy")
+    _check_launch(lib.ga_epoch_max_active_clusters(
+        cfg.n, cfg.v, min(cfg.p, cfg.n), cfg.steps_per_draw, i_local,
+        ctypes.byref(out)),
+        "ga_epoch occupancy")
     return out.value
+
+
+KERNEL_IDS = {"ga_generation": 0, "ga_epoch": 1, "ga_streamed_epoch": 2}
+
+
+def kernel_attrs(name: str, cfg: GAConfig) -> Dict[str, int]:
+    """Kernel `name` as built for `cfg`'s clocks a draw (3 has its own
+    build), at `cfg`'s block shape: registers and local (spill and stack)
+    bytes a thread (cudaFuncGetAttributes), the blocks an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the threads a
+    block; needs a card."""
+    import ctypes
+    lib = kernel_library()
+    regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _check_launch(lib.ga_step_kernel_attrs(
+        KERNEL_IDS[name], cfg.n, cfg.v, min(cfg.p, cfg.n),
+        cfg.steps_per_draw, ctypes.byref(regs), ctypes.byref(local),
+        ctypes.byref(blocks)), f"{name} attributes")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": blocks.value,
+            "threads": lib.ga_step_threads(cfg.n)}
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +516,8 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
             bx.data_ptr(), send.data_ptr(), w0.data_ptr(), lo.data_ptr(),
             span.data_ptr(), g_grid, i_islands, n, v, cfg.c, cfg.idx_bits,
-            cfg.cut_bits, cfg.p, cfg.steps_per_draw, int(cfg.minimize),
+            cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
+            int(cfg.minimize),
             problem_id(program), migrate_every, intervals, int(migrate),
             int(boundary), stream)
     _check_launch(err, "ga_epoch")
@@ -542,7 +587,7 @@ def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
             bx.data_ptr(), ex.data_ptr(), wi.data_ptr(), lo.data_ptr(),
             span.data_ptr(), g_grid, i_islands, tile_islands, n, v, cfg.c,
-            cfg.idx_bits, cfg.cut_bits, cfg.p, cfg.steps_per_draw,
+            cfg.idx_bits, cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
             int(cfg.minimize), problem_id(program), migrate_every,
             int(migrate), stream)
     _check_launch(err, "ga_streamed_epoch")

@@ -37,9 +37,26 @@ def kernel_library():
     lib.lfsr_advance_launch.argtypes = [p, p, ctypes.c_longlong,
                                         ctypes.c_int, p]
     lib.lfsr_advance_launch.restype = ctypes.c_int
+    lib.lfsr_advance_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.lfsr_advance_attrs.restype = ctypes.c_int
     lib.lfsr_advance_error_string.argtypes = [ctypes.c_int]
     lib.lfsr_advance_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_attrs() -> Dict[str, int]:
+    """The kernel as compiled: registers and local (spill and stack) bytes
+    a thread, and the blocks of 256 threads an SM holds; needs a card."""
+    import ctypes
+    lib = kernel_library()
+    regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.lfsr_advance_attrs(ctypes.byref(regs), ctypes.byref(local),
+                                 ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"lfsr_advance attributes: CUDA error {err} "
+                           f"({lib.lfsr_advance_error_string(err).decode()})")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": blocks.value, "threads": 256}
 
 
 def lfsr_advance_kernel(state: torch.Tensor, steps: int) -> torch.Tensor:

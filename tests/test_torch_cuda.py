@@ -80,8 +80,10 @@ def test_kernel_matches_plain(cuda_device, problem, n, gens, minimize):
 def test_shared_memory_formula_matches_kernel(cuda_device):
     lib = K.kernel_library()
     assert lib.ga_step_smem_limit() == K.SMEM_LIMIT
-    for n, v in ((2, 1), (64, 2), (1024, 8), (4096, 2), (8192, 2)):
-        assert lib.ga_step_smem_bytes(n, v) == K.smem_bytes(n, v)
+    for n, v in ((2, 1), (64, 2), (1024, 8), (1024, 21), (4096, 2),
+                 (4096, 3), (8192, 2)):
+        for p in (0, 1, n // 2, n):
+            assert lib.ga_step_smem_bytes(n, v, p) == K.smem_bytes(n, v, p)
 
 
 @pytest.mark.cuda
@@ -191,11 +193,17 @@ def test_streamed_kernel_matches_plain(cuda_device, problem, n, tile,
 def test_epoch_shared_memory_and_clusters(cuda_device):
     lib = K.kernel_library()
     assert lib.ga_step_max_cluster() == K.MAX_CLUSTER
-    for n, v in ((2, 1), (64, 2), (1024, 8), (4096, 2)):
-        assert lib.ga_epoch_smem_bytes(n, v) == K.epoch_smem_bytes(n, v)
-    cfg = TG.GAConfig(n=1024, c=16, v=8, mode="arith", sel_lane="gather")
+    for n, v in ((2, 1), (64, 2), (1024, 8), (1024, 21), (4096, 2),
+                 (4096, 3)):
+        for p in (1, 21, n):
+            assert lib.ga_epoch_smem_bytes(n, v, p) == \
+                K.epoch_smem_bytes(n, v, p)
+    cfg = TG.GAConfig(n=1024, c=16, v=8, mutation_rate=0.02, mode="arith",
+                      sel_lane="gather")
     for islands in (1, 4, 8):
         assert K.max_active_clusters(cfg, islands) >= 1
+    # the full-width ring, 16 replicas of 8 islands, fits the card at once
+    assert K.max_active_clusters(cfg, 8) >= 16
 
 
 @pytest.mark.cuda
@@ -218,6 +226,82 @@ def test_epoch_kernels_refuse_what_they_cannot_take(cuda_device):
         with pytest.raises(ValueError, match="no Hopper FFM stage"):
             fn(*four, cfg=cfg, program=blackbox, migrate_every=2)
     assert K.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kernel_attributes_let_two_island_blocks_share_an_sm(cuda_device):
+    """At the full-width shape each kernel takes 512 threads of at most 64
+    registers and two blocks an SM, so the resident ring runs in one wave."""
+    cfg = TG.GAConfig(n=1024, c=16, v=8, mutation_rate=0.02, mode="arith",
+                      sel_lane="gather")
+    for name in K.KERNEL_IDS:
+        attrs = K.kernel_attrs(name, cfg)
+        assert attrs["threads"] == 512
+        assert attrs["registers"] <= 64
+        assert attrs["blocks_per_sm"] >= 2, (name, attrs)
+
+
+# ---------------------------------------------------------------------------
+# The generation body K1-K3 share, across its parameters
+# ---------------------------------------------------------------------------
+
+# (problem, N, steps_per_draw, mutation_rate): the LFSR advance at every
+# chunking of its 22-clock pass; odd and large V; P = 1 (the least
+# GAConfig gives: P = max(1, ceil(N * rate))), N/2 and N; N below a warp
+# and past the 512 threads of a block; the largest V at N = 4096, 2048 and
+# 1024 that the footprint admits (tests/test_torch_kernels.py), with the
+# mutation rows below P in shared memory and, where they do not fit, in
+# global memory (V=21 at N=1024 already at P=21; the largest shapes at
+# P=N, among them N=4096, V=3 and N=8192, V=1, which the layout before
+# this one also ran).
+BODY_CASES = ([("F3", 64, s, 0.02) for s in (1, 2, 3, 7, 31, 32, 40)]
+              + [(p, 64, 3, 0.02) for p in ("sphere:1", "rosenbrock:3",
+                                            "ackley:5", "rastrigin:16")]
+              + [("F2", 64, 3, r) for r in (0.0, 0.5, 1.0)]
+              + [("rastrigin:8", 1024, 3, 1.0), ("F1", 4, 3, 0.02),
+                 ("F1", 16, 5, 0.3), ("F3", 2048, 3, 0.02),
+                 ("F3", 4096, 3, 0.02), ("sphere:4", 4096, 3, 0.02),
+                 ("sphere:9", 2048, 3, 0.02), ("sphere:20", 1024, 3, 0.02),
+                 ("sphere:21", 1024, 3, 0.02), ("sphere:21", 1024, 7, 1.0),
+                 ("sphere:9", 2048, 3, 1.0), ("sphere:4", 4096, 3, 1.0),
+                 ("F3", 4096, 3, 0.9), ("sphere:3", 4096, 3, 1.0),
+                 ("sphere:1", 8192, 3, 1.0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem,n,steps,rate", BODY_CASES)
+def test_generation_body_matches_plain(cuda_device, problem, n, steps,
+                                       rate):
+    """K1, K2 (ring, free, boundary) and K3 (tiles 1 and 2) each equal
+    their plain version on the same card tensors."""
+    prog = TF.compile_program(problem=problem, bits_per_var=10)
+    cfg = TG.GAConfig(n=n, c=10, v=prog.n_vars, mutation_rate=rate, seed=5,
+                      minimize=n != 16, steps_per_draw=steps, mode="arith",
+                      sel_lane="gather")
+    assert K.hopper_reason(cfg, prog) is None
+    exact = prog.name in EXACT
+    before = dict(K.LAUNCHES)
+    st = _stack(cfg, 3, cuda_device)
+    args = (st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)
+    for gens, track in ((3, True), (2, False)):
+        kw = dict(cfg=cfg, program=prog, gens=gens, track_best=track)
+        _assert_kernel_equals_plain(K.ga_generation_kernel(*args, **kw),
+                                    K.ga_generation_plain(*args, **kw),
+                                    exact)
+    eargs = _island_groups(cfg, 2, 4, cuda_device)
+    run = dict(cfg=cfg, program=prog, migrate_every=3)
+    for kw in (dict(intervals=2), dict(intervals=2, migrate=False),
+               dict(boundary=True)):
+        _assert_kernel_equals_plain(K.ga_epoch_kernel(*eargs, **run, **kw),
+                                    K.ga_epoch_plain(*eargs, **run, **kw),
+                                    exact)
+    for tile in (1, 2):
+        _assert_kernel_equals_plain(
+            K.ga_streamed_epoch_kernel(*eargs, tile_islands=tile, **run),
+            K.ga_streamed_epoch_plain(*eargs, **run), exact)
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
+        "ga_generation": 2, "ga_epoch": 3, "ga_streamed_epoch": 2}
 
 
 # ---------------------------------------------------------------------------

@@ -182,13 +182,14 @@ def test_epoch_wrappers_refuse_what_the_kernels_cannot_take():
         with pytest.raises(ValueError, match="no Hopper FFM stage"):
             fn(*four, cfg=tcfg, program=blackbox, migrate_every=2)
     big = TG.GAConfig(n=4096, c=10, v=3, mode="arith", sel_lane="gather")
-    assert K.smem_bytes(4096, 3) <= K.SMEM_LIMIT < K.epoch_smem_bytes(4096, 4)
+    assert K.smem_bytes(4096, 3, big.p) <= K.SMEM_LIMIT \
+        < K.epoch_smem_bytes(4096, 5, big.p)
     st = TISL.init_islands_fast(TISL.IslandConfig(
-        ga=dataclasses.replace(big, v=4), n_islands=1), device="cpu")
+        ga=dataclasses.replace(big, v=5), n_islands=1), device="cpu")
     with pytest.raises(ValueError, match="bytes of shared memory"):
         K.ga_epoch_kernel(*(t[None] for t in st[:4]),
-                          cfg=dataclasses.replace(big, v=4),
-                          program=TF.compile_program(problem="sphere:4",
+                          cfg=dataclasses.replace(big, v=5),
+                          program=TF.compile_program(problem="sphere:5",
                                                      bits_per_var=10),
                           migrate_every=1)
 

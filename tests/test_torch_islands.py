@@ -385,8 +385,8 @@ def test_planner_shared_memory_limit(monkeypatch, over):
     Hopper block: resident and streamed go together, gridded (K1, a
     smaller block) stays."""
     cfg = TG.GAConfig(n=64, c=10, v=2, mode="arith")
-    need = K.epoch_smem_bytes(64, 2)
-    assert need - K.smem_bytes(64, 2) == 4 * (2 + 1)
+    need = K.epoch_smem_bytes(64, 2, cfg.p)
+    assert need - K.smem_bytes(64, 2, cfg.p) == 4 * (2 + 1)
     monkeypatch.setattr(K, "SMEM_LIMIT", need - 1 if over else need)
     ring = K.epoch_mode_candidates(cfg, 4, executor="fused",
                                    migration="ring", gens_per_epoch=32,
@@ -406,11 +406,12 @@ def test_planner_shared_memory_limit(monkeypatch, over):
 def test_plan_telemetry_reports_block_bytes():
     kw = _kw(gens_per_epoch=5)
     tele = _segment(kw, "fused-islands", 5).telemetry
-    assert tele.plan.smem_estimate_bytes == K.epoch_smem_bytes(32, 2)
+    p = ga.GASpec(**kw).ga_config().p          # ceil(32 * 0.05) = 2
+    assert tele.plan.smem_estimate_bytes == K.epoch_smem_bytes(32, 2, p)
     assert tele.plan.lane == "onehot" and tele.plan.epochs_per_launch == 1
     tele = _segment(kw, "fused-islands", 5,
                     plan_override="gridded").telemetry
-    assert tele.plan.smem_estimate_bytes == K.smem_bytes(32, 2)
+    assert tele.plan.smem_estimate_bytes == K.smem_bytes(32, 2, p)
     assert _segment(kw, "islands", 5).telemetry.plan.smem_estimate_bytes \
         is None
 

@@ -168,16 +168,75 @@ def test_wrapper_rejects_non_pow2_population():
 
 def test_wrapper_rejects_population_past_shared_memory():
     """N=8192, V=2 needs more shared memory than a Hopper block has; the
-    wrapper names the bytes and the limit instead of clipping."""
+    wrapper names the bytes and the limit instead of clipping.  P (here
+    ceil(0.01 N)) counts where its rows fit."""
     tcfg = TG.GAConfig(n=8192, c=10, v=2, seed=1, mode="arith",
                        sel_lane="gather")
-    assert K.smem_bytes(8192, 2) > K.SMEM_LIMIT >= K.smem_bytes(4096, 2)
-    assert K.smem_bytes(1024, 8) <= K.SMEM_LIMIT
+    assert (tcfg.p, dataclasses.replace(tcfg, n=4096).p) == (82, 41)
+    assert K.smem_bytes(8192, 2, 82) > K.SMEM_LIMIT >= K.smem_bytes(4096, 2,
+                                                                     41)
+    assert K.smem_bytes(1024, 8, 1024) <= K.SMEM_LIMIT
     prog = TF.compile_program(problem="F3", bits_per_var=10)
     st = TG.stack_states([TG.init_state(tcfg, device="cpu")])
-    with pytest.raises(ValueError, match=f"{K.smem_bytes(8192, 2)} bytes"):
+    with pytest.raises(ValueError,
+                       match=f"{K.smem_bytes(8192, 2, 82)} bytes"):
         K.ga_generation_kernel(st.x, st.sel_lfsr, st.cross_lfsr,
                                st.mut_lfsr, cfg=tcfg, program=prog)
+
+
+# The largest V a block takes at N in {1024, 2048, 4096}, at any mutation
+# rate; the layout with a full offspring buffer and the whole mutation bank
+# took V=15, 7 and 3 there.
+NEWLY_ADMITTED = ((4096, 4), (2048, 9), (1024, 21))
+
+
+@pytest.mark.parametrize("n,v", NEWLY_ADMITTED)
+def test_footprint_admits_the_largest_shape_at_any_mutation_rate(n, v):
+    """The mutation rows below P stay in global memory where they do not
+    fit, so the largest V at N runs at P = ceil(0.02 N) and at P = N alike,
+    and V + 1 is refused at both with its byte count."""
+    for rate in (0.02, 1.0):
+        prog = TF.compile_program(problem=f"sphere:{v}", bits_per_var=10)
+        cfg = TG.GAConfig(n=n, c=10, v=v, mutation_rate=rate, mode="arith",
+                          sel_lane="gather")
+        assert K.hopper_reason(cfg, prog) is None
+        assert K.epoch_smem_reason(cfg) is None
+        wider = dataclasses.replace(cfg, v=v + 1)
+        need = K.smem_bytes(n, v + 1, wider.p)
+        assert need > K.SMEM_LIMIT
+        assert f"P={wider.p} needs {need} bytes" in K.hopper_reason(
+            wider, TF.compile_program(problem=f"sphere:{v + 1}",
+                                      bits_per_var=10))
+
+
+# (N, V, P, whether the mutation rows below P fit in shared memory)
+ROW_PLACES = ((1024, 8, 21, True), (1024, 8, 1024, True),
+              (1024, 20, 21, True), (1024, 21, 1, True),
+              (1024, 21, 21, False), (4096, 3, 4096, False))
+
+
+@pytest.mark.parametrize("n,v,p,held", ROW_PLACES)
+def test_footprint_holds_the_mutation_rows_where_they_fit(n, v, p, held):
+    """A block counts V * P words for the mutation rows below P where they
+    fit beside the rest of its state, and none where they stay in global
+    memory (N=4096, V=3 at P=N ran in the layout before this one and runs
+    in this one)."""
+    base = 4 * (2 * n * v + 4 * n + v * (n // 2) + 3 * v + 2 + 128)
+    assert K.smem_bytes(n, v, p) == base + (4 * v * p if held else 0)
+    assert K.smem_bytes(n, v, p) <= K.SMEM_LIMIT
+    assert (base + 4 * v * p <= K.SMEM_LIMIT) == held
+
+
+def test_full_width_island_blocks_pair_up_on_an_sm():
+    """At the full-width ring (N=1024, V=8, P=21) two K2 blocks share an
+    SM's 228 KiB of shared memory (1 KiB reserved a block), which is what
+    lets 16 clusters of 8 islands run in one wave."""
+    cfg = TG.GAConfig(n=1024, c=16, v=8, mutation_rate=0.02, mode="arith")
+    assert cfg.p == 21
+    need = K.epoch_smem_bytes(1024, 8, cfg.p)
+    assert need == 4 * (2 * 8192 + 4 * 1024 + 8 * 512 + 8 * 21 + 24 + 2
+                        + 128 + 9)
+    assert 2 * (need + 1024) <= 228 * 1024
 
 
 def test_wrapper_rejects_fitness_without_hopper_stage():
