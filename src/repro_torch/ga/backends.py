@@ -24,7 +24,8 @@ A **topology** owns population layout, the epoch loop and migration:
                ...]).  With the fused executor an epoch planner picks the
                launch shape (see `IslandRingTopology`): the ring between
                K1 launches (gridded), inside the K2 kernel (resident), or
-               between K3 passes (streamed) — all bit-identical.
+               inside a cooperative K3 launch (streamed) — all
+               bit-identical.
 
 The registry exposes the compositions under the JAX package's names:
 
@@ -350,8 +351,10 @@ class IslandRingTopology(Topology):
                      whole intervals, the ring inside the kernel;
       resident-free  (fused, migration="none") one K2 launch without a ring
                      folds the whole gens_per_epoch;
-      streamed       (fused, resident refused) k K3 passes a launch, the
-                     ring splice in PyTorch between passes.
+      streamed       (fused, resident refused) one K3 launch folds k
+                     whole intervals, the ring inside the kernel through
+                     global memory; its island tile comes from how many
+                     blocks the card holds at once.
 
     candidates[0] is the heuristic (`plan_source: "heuristic"`); a
     `plan_override` picks another feasible mode (`"forced"`) or raises.
@@ -375,7 +378,8 @@ class IslandRingTopology(Topology):
         cands = K.epoch_mode_candidates(
             self.cfg, spec.n_islands, executor=self.executor.name,
             migration=spec.migration, gens_per_epoch=spec.gens_per_epoch,
-            migrate_every=spec.migrate_every)
+            migrate_every=spec.migrate_every, groups=spec.n_repeats,
+            device=self.device)
         want = plan_mode(self.plan_override)
         if want is None:
             plan = dict(cands[0], plan_source="heuristic")
@@ -394,11 +398,10 @@ class IslandRingTopology(Topology):
         if plan["mode"] == "streamed":
             if self.stream_tile_islands is not None:
                 t = int(self.stream_tile_islands)
-                if spec.n_islands % t:
-                    raise ValueError(
-                        f"stream_tile_islands={t} is not a feasible tile: "
-                        "it must divide the island count "
-                        f"{spec.n_islands}")
+                reason = K.streamed_tile_reason(
+                    self.cfg, spec.n_repeats, spec.n_islands, t, self.device)
+                if reason is not None:
+                    raise ValueError(reason)
                 plan["tile_islands"] = t
             plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
         elif plan["mode"].startswith("resident"):
@@ -482,31 +485,21 @@ class IslandRingTopology(Topology):
         return launch
 
     def _streamed_runner(self, k: int):
-        """k K3 passes, one interval each; between passes the elites,
-        shifted by one island, splice into the worst slots (the rule set of
-        `ring_migrate_stack`, split around the kernel)."""
+        """ONE K3 launch: k whole intervals with the ring (or, without
+        migration, none) inside the kernel."""
         e, tile = self.icfg.migrate_every, self.plan["tile_islands"]
         migrate = self.spec.migration == "ring"
         prog, sq = self.spec.program(), self._ungrouped
 
         def launch(states):
             g = self._grouped(states)
-            x, sel, cross, mut = g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr
-            bys, bxs = [], []
-            for _ in range(k):
-                outs = K.ga_streamed_epoch_kernel(
-                    x, sel, cross, mut, cfg=self.cfg, program=prog,
-                    migrate_every=e, tile_islands=tile, migrate=migrate)
-                x, sel, cross, mut, ymig, by, bx = outs[:7]
-                if migrate:
-                    elite, widx = outs[7:]
-                    x = ISL.splice_at(x, widx, torch.roll(elite, 1, dims=1))
-                bys.append(by)
-                bxs.append(bx)
+            x, sel, cross, mut, y, by, bx = K.ga_streamed_epoch_kernel(
+                g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
+                program=prog, migrate_every=e, tile_islands=tile,
+                migrate=migrate, intervals=k, splice=True)
             state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
                               states.k + k * e)
-            return (state, sq(torch.stack(bys), 1), sq(torch.stack(bxs), 1),
-                    sq(torch.mean(ymig, dim=-1)))
+            return (state, sq(by, 1), sq(bx, 1), sq(torch.mean(y, dim=-1)))
 
         return launch
 

@@ -13,7 +13,8 @@ Knobs:
     read the same way); a mode the spec cannot run raises with the
     candidates it can.
   * stream_tile_islands — pin the streamed mode's island tile (islands one
-    thread block walks in turn; must divide the island count).  A launch
+    thread block walks in turn; must divide the island count, and on a
+    card its blocks must co-reside as the planner's tile's do).  A launch
     shape only: every tile gives the same result.
 
 Options only choose launch shapes, never results: every plan is

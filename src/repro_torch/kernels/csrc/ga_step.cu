@@ -13,9 +13,13 @@
 //                            the intra-shard part only: `boundary`); unlike
 //                            the TPU kernel it returns the best of each
 //                            interval, not their fold over the launch;
-//   K3 ga_streamed_epoch  <- ga_streamed_epoch_kernel: one interval of each
-//                            island of a tile, returning the pre-splice
-//                            elites and worst slots for a splice outside.
+//   K3 ga_streamed_epoch  <- ga_streamed_epoch_kernel: by default one
+//                            interval of every island, returning the
+//                            pre-splice elites and worst slots for a splice
+//                            outside (the TPU kernel's contract); with
+//                            `splice`, `intervals` intervals with the ring
+//                            inside one cooperative launch (K2's contract,
+//                            for island counts past a cluster).
 //
 // One generation (`generation` below) is the paper's datapath: 2-way
 // tournaments on the top `idx_bits` of the selection draws, mask-shift
@@ -103,10 +107,38 @@
 // neighbour has read.  The exchange never touches HBM.  The spliced row's
 // fitness is re-evaluated before the next interval.
 //
-// K3's tile.  On the TPU the streamed tile exists to double-buffer HBM
-// copies; on Hopper the blocks of a launch already run in parallel on 132
-// SMs, so a block walks its `tile` islands in turn through the same shared
-// memory (load, interval, write back), and the planner's tile is 1.
+// K3.  On the TPU the streamed tile exists to double-buffer an island stack
+// through VMEM.  On Hopper the streamed plan exists only because a cluster
+// holds at most 8 islands; one island still fits one block, two blocks an
+// SM.  Run as one pass an interval with the splice in PyTorch between
+// passes, K3 paid per interval for a state load and store (88 KiB an
+// island at the full-width shape), a full evaluation, the nibble advance
+// of the rows past P, a launch, nine output allocations and a PyTorch
+// splice over the whole stack.  So the `splice` form runs a launch's k
+// intervals in one cooperative launch (every block co-resident, or the
+// launch is refused; nothing falls back):
+//   * the tile T (islands a block walks) is the least divisor of I whose
+//     G * I / T blocks the card holds at once (the Python planner, from
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs).  At T = 1 an
+//     island stays in shared memory for all k intervals: one load, one
+//     store, one full evaluation and one nibble advance a launch.  At T > 1
+//     a block walks its islands each interval through HBM as a pass did;
+//     the pending splice is applied at the next load, and after the last
+//     interval in global memory.  When even T = I is too many blocks, the
+//     wrapper launches whole groups in waves the card holds;
+//   * the ring goes through global memory: at the end of an interval each
+//     island writes its elite (V words) into an exchange buffer indexed by
+//     the interval's parity, [2, G, I, V], and its worst slot; a barrier
+//     spans the I / T blocks of its group (a counter in global memory,
+//     release on arrive, acquire on wait), so groups never wait for one
+//     another; then each island splices the elite of island (i - 1) mod I
+//     into its worst slot and re-evaluates that row as K2 does.  One
+//     barrier an interval is enough because of the parity: a block writes
+//     buffer it & 1 again only at interval it + 2, after passing barrier
+//     it + 1; its neighbour arrives there only after reading buffer it & 1
+//     (right after barrier it, or at its next load at T > 1).  Elites are
+//     read with ld.global.cg, past the SM's L1.  Without migration there
+//     is no barrier and no cooperative launch.
 //
 // Numerics.  Built with -fmad=false and the default IEEE division and
 // square root, so each float operation rounds once, in the order the plain
@@ -793,14 +825,51 @@ ga_epoch(const Stack g, const Shape S, const Epoch E) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: one interval of every island, a block walking a tile of islands.
+// K3: streamed epochs.  Block b of a launch takes group group0 + b / (I / T)
+// and walks its T islands; with `splice` a launch runs `intervals`
+// intervals and the ring between them (see the header).
 // ---------------------------------------------------------------------------
 
 struct Streamed {
-  int islands, tile, migrate_every, migrate;
-  uint32_t* elite_x;         // [G, I, V] pre-splice elites
-  int* worst_idx;            // [G, I]    pre-splice worst slots
+  int groups, islands, tile, migrate_every, intervals, migrate, splice;
+  int group0;                // the first group of this launch (a wave)
+  uint32_t* elite;           // [2, G, I, V] elites by interval parity
+                             // (without splice: [G, I, V], the output)
+  int* worst;                // [G, I] worst slots (without splice: output)
+  unsigned* arrived;         // [G] barrier counters, zero at launch
 };
+
+// Arrive at the barrier of a group and wait until `target` blocks have:
+// release on arrive, acquire on wait, at device scope.  Every thread of the
+// block must call it.
+__device__ __forceinline__ void group_barrier(unsigned* arrived,
+                                              unsigned target) {
+  __syncthreads();          // the block's writes precede thread 0's arrive
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(arrived) : "memory");
+    unsigned seen;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen) : "l"(arrived) : "memory");
+      if (seen >= target) break;
+      __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Island `k`'s elite (b: its slot, n for none, which gives zeros) into
+// `dst`, and its worst slot `w` into *worst.
+__device__ __forceinline__
+void send_elite(const Island& s, const Shape& S, int cur, int b, int w,
+                uint32_t* dst, int* worst) {
+  for (int j = threadIdx.x; j < S.v; j += blockDim.x)
+    dst[j] = b < S.n ? s.X(cur)[(size_t)j * S.n + b] : 0u;
+  if (threadIdx.x == 0) *worst = w;
+}
 
 template <int kSteps>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
@@ -808,28 +877,97 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
   extern __shared__ uint32_t smem[];
   const int n = S.n, v = S.v, tid = threadIdx.x, nt = blockDim.x;
   const bool minimize = S.minimize != 0;
+  const bool ring = T.migrate && T.splice;
+  // T = 1: the island stays in shared memory for every interval
+  const bool keep = T.tile == 1;
   const int tiles = T.islands / T.tile;
-  const size_t first = (size_t)(blockIdx.x / tiles) * T.islands +
-                       (size_t)(blockIdx.x % tiles) * T.tile;
-  for (int t = 0; t < T.tile; ++t) {
-    const size_t k = first + t;
-    const Island s = carve(smem, S, g.mut_out, k);
-    load_island(s, g, S, k);
-    evaluate(s, S, 0, true, -1);
-    int cur = 0;
-    for (int e = 0; e < T.migrate_every; ++e, cur ^= 1)
-      generation<kSteps>(s, S, true, true, cur);
-    if (T.migrate) {        // y[cur]: the migration fitness
-      const int b = block_slot(s, s.Y(cur), n, minimize, cur ^ 1);
-      const int w = block_slot(s, s.Y(cur), n, !minimize, cur ^ 1);
-      for (int j = tid; j < v; j += nt)
-        T.elite_x[k * v + j] = b < n ? s.X(cur)[(size_t)j * n + b] : 0u;
-      if (tid == 0) T.worst_idx[k] = w;
+  const int group = T.group0 + blockIdx.x / tiles;
+  const int first = (blockIdx.x % tiles) * T.tile;
+  const size_t all = (size_t)T.groups * T.islands;
+  unsigned* arrived = T.arrived + group;
+  int cur = 0;
+  for (int it = 0; it < T.intervals; ++it) {
+    const uint32_t* sent = T.elite + (size_t)(it & 1) * all * v;
+    for (int t = 0; t < T.tile; ++t) {
+      const int i = first + t;
+      const size_t k = (size_t)group * T.islands + i;
+      const size_t from = (size_t)group * T.islands +
+                          (i + T.islands - 1) % T.islands;
+      const Island s = carve(smem, S, g.mut_out, k);
+      // from the second interval on, a walking block reloads what it
+      // stored (a value, not a reference: no stack frame)
+      Stack src = g;
+      if (it) {
+        src.x_in = g.x_out;
+        src.sel_in = g.sel_out;
+        src.cross_in = g.cross_out;
+        src.mut_in = g.mut_out;
+      }
+      if (!keep || it == 0) {
+        load_island(s, src, S, k);
+        if (ring && it > 0) {       // the splice pending since the last
+          const int w = T.worst[k]; // interval
+          const uint32_t* e = T.elite + ((size_t)((it - 1) & 1) * all +
+                                         from) * v;
+          if (w < n)
+            for (int j = tid; j < v; j += nt)
+              s.x0[(size_t)j * n + w] = __ldcg(e + j);
+          __syncthreads();
+        }
+        evaluate(s, S, 0, true, -1);
+        cur = 0;
+      }
+      for (int e = 0; e < T.migrate_every; ++e, cur ^= 1)
+        generation<kSteps>(s, S, true, true, cur);
+      // the interval's best, then a fresh fold for the next interval
+      if (fold_warp()) {
+        const size_t o = (size_t)it * all + k;
+        take_best(s, S, g.best_x + o * v, g.best_y + o);
+      }
+      int w = n;
+      if (T.migrate) {              // y[cur]: the migration fitness
+        const int b = block_slot(s, s.Y(cur), n, minimize, cur ^ 1);
+        w = block_slot(s, s.Y(cur), n, !minimize, cur ^ 1);
+        send_elite(s, S, cur, b, w,
+                   T.elite + ((size_t)(it & 1) * all + k) * v, T.worst + k);
+      }
+      if (!keep) {
+        store_island(s, src, S, k, s.X(cur), s.Y(cur),
+                     T.migrate_every * S.steps, false);
+        __syncthreads();            // the next island's load overwrites
+                                    // what the store reads
+      } else if (ring) {
+        group_barrier(arrived, (unsigned)(it + 1) * tiles);
+        const uint32_t* e = sent + from * v;
+        if (w < n)
+          for (int j = tid; j < v; j += nt)
+            s.X(cur)[(size_t)j * n + w] = __ldcg(e + j);
+        __syncthreads();            // the row is whole before it is read
+        if (it + 1 < T.intervals) evaluate(s, S, cur, true, w);
+      }
     }
-    store_island(s, g, S, k, s.X(cur), s.Y(cur), T.migrate_every * S.steps,
-                 true);
-    __syncthreads();        // the next island's load overwrites what the
-                            // store reads
+    if (!keep && ring) group_barrier(arrived, (unsigned)(it + 1) * tiles);
+  }
+  if (keep) {
+    // y: the final interval's migration fitness (pre-splice)
+    const size_t k = (size_t)group * T.islands + first;
+    const Island s = carve(smem, S, g.mut_out, k);
+    store_island(s, g, S, k, s.X(cur), s.Y(cur),
+                 T.intervals * T.migrate_every * S.steps, false);
+  } else if (ring) {
+    // the last interval's splice, in global memory
+    const uint32_t* sent =
+        T.elite + (size_t)((T.intervals - 1) & 1) * all * v;
+    for (int t = 0; t < T.tile; ++t) {
+      const int i = first + t;
+      const size_t k = (size_t)group * T.islands + i;
+      const size_t from = (size_t)group * T.islands +
+                          (i + T.islands - 1) % T.islands;
+      const int w = T.worst[k];
+      if (w < n)
+        for (int j = tid; j < v; j += nt)
+          g.x_out[(k * n + w) * v + j] = __ldcg(sent + from * v + j);
+    }
   }
 }
 
@@ -917,11 +1055,13 @@ Stack make_stack(const void* x_in, const void* sel_in, const void* cross_in,
 }
 
 // A launch configuration of `blocks` blocks for population size n, with a
-// cluster of `cluster` blocks when cluster > 0.
+// cluster of `cluster` blocks when cluster > 0, and cooperative (every
+// block co-resident, or the launch is refused) with `cooperative`.
 struct Launch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  Launch(int blocks, int n, size_t smem, void* stream, int cluster) {
+  Launch(int blocks, int n, size_t smem, void* stream, int cluster,
+         bool cooperative = false) {
     cfg = cudaLaunchConfig_t{};
     cfg.gridDim = dim3(blocks);
     cfg.blockDim = dim3(threads_for(n));
@@ -932,6 +1072,11 @@ struct Launch {
       attr[0].val.clusterDim.x = cluster;
       attr[0].val.clusterDim.y = 1;
       attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+    } else if (cooperative) {
+      attr[0].id = cudaLaunchAttributeCooperative;
+      attr[0].val.cooperative = 1;
       cfg.attrs = attr;
       cfg.numAttrs = 1;
     }
@@ -1051,19 +1196,27 @@ int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int* regs,
       blocks_per_sm, kernel, threads_for(n), smem);
 }
 
-// K3: `groups` x `islands / tile` blocks, each walking `tile` islands.
+// K3: `groups` x `islands / tile` blocks, each walking `tile` islands for
+// `intervals` intervals (1 without `splice`).  With the ring inside
+// (`migrate` and `splice`) the launch is cooperative and its groups go in
+// waves of `wave_groups`, each a launch whose blocks the card holds at
+// once; `arrived` holds one zeroed counter a group.  Without `splice`,
+// `elite` and `worst` are the outputs [G, I, V] and [G, I]; with it, the
+// exchange buffer [2, G, I, V] and the worst slots [G, I].
 int ga_streamed_launch(const void* x_in, const void* sel_in,
                        const void* cross_in, const void* mut_in, void* x_out,
                        void* sel_out, void* cross_out, void* mut_out,
-                       void* y_out, void* best_y, void* best_x,
-                       void* elite_x, void* worst_idx, const void* lo,
+                       void* y_out, void* best_y, void* best_x, void* elite,
+                       void* worst, void* arrived, const void* lo,
                        const void* span, int groups, int islands, int tile,
                        int n, int v, int c, int idx_bits, int cut_bits, int p,
                        int steps, int minimize, int problem,
-                       int migrate_every, int migrate, void* stream) {
+                       int migrate_every, int intervals, int migrate,
+                       int splice, int wave_groups, void* stream) {
   const size_t smem = smem_of(2, n, v, p);
   if (bad_shape(smem, n, v, c, p, steps) || groups < 1 || islands < 1 ||
-      tile < 1 || islands % tile || migrate_every < 1)
+      tile < 1 || islands % tile || migrate_every < 1 || intervals < 1 ||
+      (!splice && intervals != 1) || wave_groups < 1)
     return (int)cudaErrorInvalidValue;
   const int form = form_of(2, n, v, p, steps);
   cudaError_t e = allow_smem(kernel_of(2, form), slot_of(2, form));
@@ -1073,13 +1226,39 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
                              span);
   const Shape S = shape_of(2, n, v, c, idx_bits, cut_bits, p, steps,
                            minimize, problem);
-  const Streamed T{islands, tile, migrate_every, migrate, (uint32_t*)elite_x,
-                   (int*)worst_idx};
+  const bool ring = migrate && splice;
+  const int wave = ring ? wave_groups : groups;
   auto* kernel = form == kPaperSteps ? ga_streamed_epoch<kPaperSteps>
                                      : ga_streamed_epoch<0>;
-  kernel<<<groups * (islands / tile), threads_for(n), smem,
-           (cudaStream_t)stream>>>(g, S, T);
+  for (int g0 = 0; g0 < groups; g0 += wave) {
+    const int count = groups - g0 < wave ? groups - g0 : wave;
+    const Streamed T{groups, islands, tile, migrate_every, intervals,
+                     migrate, splice, g0, (uint32_t*)elite, (int*)worst,
+                     (unsigned*)arrived};
+    Launch L(count * (islands / tile), n, smem, stream, 0, ring);
+    e = cudaLaunchKernelEx(&L.cfg, kernel, g, S, T);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
+}
+
+// How many K3 blocks at (n, v, p, steps) the card holds at once: the
+// blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times
+// the SMs, into *out; returns the cudaError_t.
+int ga_streamed_capacity(int n, int v, int p, int steps, int* out) {
+  const size_t smem = smem_of(2, n, v, p);
+  const int form = form_of(2, n, v, p, steps);
+  cudaError_t e = allow_smem(kernel_of(2, form), slot_of(2, form));
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel_of(2, form), threads_for(n), smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  *out = per_sm * sms;
+  return 0;
 }
 
 }  // extern "C"

@@ -8,9 +8,13 @@
                                  kernel (`migrate=False`: no ring, the
                                  resident-free mode; `boundary=True`: the
                                  intra-shard part only);
-  K3 `ga_streamed_epoch_kernel`  one interval of every island of [G, I, N,
-                                 V], returning the pre-splice elites and
-                                 worst slots for a splice outside.
+  K3 `ga_streamed_epoch_kernel`  by default one interval of every island
+                                 of [G, I, N, V], returning the pre-splice
+                                 elites and worst slots for a splice
+                                 outside; with `splice=True`, `intervals`
+                                 intervals with the ring inside one
+                                 cooperative launch (K2's contract, past
+                                 the cluster limit).
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/ga_step.cu``
 (built on first use by `repro_torch.kernels.build`) and counts the launch
@@ -36,13 +40,15 @@ Contracts (the JAX package's kernels, on int32 words):
       `boundary` appends (send_elite int32[G, V], worst0 int32[G]).
   K3  one interval: (state', y f32[G, I, N], best_y f32[G, I], best_x
       int32[G, I, V]), plus (elite_x int32[G, I, V], worst_idx int32[G, I])
-      with `migrate`.
+      with `migrate`; with `splice=True`, K2's outputs for `intervals`
+      intervals (the state after the last splice).
 
 Each kernel holds one island per thread block with its state in shared
 memory (the mutation rows past P, never drawn, stay in global memory, and so
 do the rows below P where they do not fit; see the note at the top of the
 CUDA source), so (N, V) must fit `SMEM_LIMIT`; K2's ring makes the islands
-of a group one thread-block cluster, at most `MAX_CLUSTER`.  `hopper_reason`
+of a group one thread-block cluster, at most `MAX_CLUSTER`; K3's ring needs
+every block of a launch co-resident (`streamed_capacity`).  `hopper_reason`
 says why a shape or a fitness cannot run, and the epoch planner
 (`epoch_mode_candidates`) which launch shapes an island-ring spec can take
 on this card.
@@ -218,8 +224,10 @@ def kernel_library():
     lib.ga_step_launch.restype = i
     lib.ga_epoch_launch.argtypes = [p] * 15 + [i] * 15 + [p]
     lib.ga_epoch_launch.restype = i
-    lib.ga_streamed_launch.argtypes = [p] * 15 + [i] * 14 + [p]
+    lib.ga_streamed_launch.argtypes = [p] * 16 + [i] * 17 + [p]
     lib.ga_streamed_launch.restype = i
+    lib.ga_streamed_capacity.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.ga_streamed_capacity.restype = i
     lib.ga_epoch_max_active_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.ga_epoch_max_active_clusters.restype = i
     lib.ga_step_kernel_attrs.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 3
@@ -315,22 +323,93 @@ def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True
     return epoch_smem_reason(cfg)
 
 
-def streamed_tile_islands(cfg: GAConfig) -> Optional[int]:
-    """The streamed lane's island tile: 1 when one island fits a K3 block
-    (the blocks of a launch already run side by side on the card's SMs, so
-    a larger tile only serialises islands), None when it does not."""
-    return 1 if epoch_smem_reason(cfg) is None else None
+@functools.lru_cache(maxsize=None)
+def _capacity(n: int, v: int, p: int, steps: int, device_index: int) -> int:
+    import ctypes
+    lib = kernel_library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check_launch(lib.ga_streamed_capacity(n, v, p, steps,
+                                               ctypes.byref(out)),
+                      "ga_streamed_epoch occupancy")
+    return out.value
+
+
+def streamed_capacity(cfg: GAConfig, device) -> int:
+    """How many K3 blocks at (N, V, P) the card `device` holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs): the
+    most a cooperative K3 launch may have; needs a card."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _capacity(cfg.n, cfg.v, min(cfg.p, cfg.n), cfg.steps_per_draw,
+                     index)
+
+
+def streamed_waves(groups: int, islands: int, tile: int,
+                   capacity: int) -> int:
+    """Launches (waves of whole groups) a ring-inside K3 launch of
+    `groups` x `islands / tile` blocks takes on a card that holds
+    `capacity` at once; 0 when one group alone does not fit."""
+    per_wave = capacity // (islands // tile)
+    return -(-groups // per_wave) if per_wave else 0
+
+
+def tile_for_capacity(groups: int, islands: int, capacity: int) -> int:
+    """The least divisor T of `islands` whose groups x islands / T blocks
+    the card holds at once; else `islands` (the fewest blocks, whole groups
+    in waves)."""
+    for t in range(1, islands + 1):
+        if islands % t == 0 and groups * (islands // t) <= capacity:
+            return t
+    return islands
+
+
+def streamed_tile_islands(cfg: GAConfig, groups: int = 1, islands: int = 1,
+                          device=None) -> Optional[int]:
+    """The streamed lane's island tile for `groups` replica groups of
+    `islands` islands: None when one island does not fit a K3 block; on a
+    CPU device (no device given counts as the CPU) 1, since the plain
+    version ignores the tile; on a card `tile_for_capacity` at its
+    `streamed_capacity`."""
+    if epoch_smem_reason(cfg) is not None:
+        return None
+    if device is None or torch.device(device).type != "cuda":
+        return 1
+    return tile_for_capacity(groups, islands,
+                             streamed_capacity(cfg, device))
+
+
+def streamed_tile_reason(cfg: GAConfig, groups: int, islands: int,
+                         tile: int, device=None) -> Optional[str]:
+    """None when a pinned streamed tile runs, else why not: it must divide
+    the island count, and on a card its blocks must co-reside in no more
+    waves than the planner's tile needs."""
+    if tile < 1 or islands % tile:
+        return (f"stream_tile_islands={tile} is not a feasible tile: it "
+                f"must divide the island count {islands}")
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    cap = streamed_capacity(cfg, device)
+    best = tile_for_capacity(groups, islands, cap)
+    waves = streamed_waves(groups, islands, tile, cap)
+    if waves == 0 or waves > streamed_waves(groups, islands, best, cap):
+        return (f"stream_tile_islands={tile} cannot co-reside: "
+                f"{groups} x {islands // tile} blocks of the cooperative "
+                f"ring launch, and the card holds {cap} at once; tile "
+                f"{best} fits")
+    return None
 
 
 def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
                           migration: str, gens_per_epoch: int,
-                          migrate_every: int) -> list:
+                          migrate_every: int, groups: int = 1,
+                          device=None) -> list:
     """The launch shapes an island-ring spec can run on Hopper, ordered so
     candidates[0] is the heuristic choice.  The structure and the order are
     the JAX package's `epoch_mode_candidates` (they decide
     `gens_per_launch`, and so the trajectory's sample count); only the
     feasibility test is this card's (`resident_fit_reason`,
-    `streamed_tile_islands`).
+    `streamed_tile_islands` for `groups` replica groups on `device`).
 
     Each candidate is a plan dict: {"mode", "lane", "epochs_per_launch",
     "gens_per_launch"} (+ "fallback", the limit that refused the resident
@@ -345,7 +424,7 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
     if migration == "ring" and gens_per_epoch >= migrate_every:
         reason = resident_fit_reason(cfg, i_local)
         if reason is not None:
-            tile = streamed_tile_islands(cfg)
+            tile = streamed_tile_islands(cfg, groups, i_local, device)
             if tile is None:
                 return [dict(gridded, fallback=reason)]
             return [{"mode": "streamed", "lane": cfg.sel_lane,
@@ -361,7 +440,7 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
         # block, a streamed tile) is offered for plan_override to pick
         reason = resident_fit_reason(cfg, i_local, ring=False)
         if reason is not None:
-            tile = streamed_tile_islands(cfg)
+            tile = streamed_tile_islands(cfg, groups, i_local, device)
             out = [dict(gridded, fallback=reason)]
             if tile is not None:
                 out.append({"mode": "streamed", "lane": cfg.sel_lane,
@@ -530,14 +609,10 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
 # ---------------------------------------------------------------------------
 
 
-def ga_streamed_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
-                            program: F.FitnessProgram, migrate_every: int,
-                            tile_islands: int = 1, migrate: bool = True
-                            ) -> Tuple[torch.Tensor, ...]:
-    """K3's function in plain PyTorch, on any device: one interval of every
-    island (K2's function without a ring) and, with `migrate`, the
-    pre-splice elites and worst slots of the migration rule set.  The tile
-    is a launch shape only and changes nothing here."""
+def _streamed_pass(x, sel, cross, mut, *, cfg, program, migrate_every,
+                   migrate):
+    """One interval of every island (K2's function without a ring) and,
+    with `migrate`, the pre-splice elites and worst slots."""
     out = ga_epoch_plain(x, sel, cross, mut, cfg=cfg, program=program,
                          migrate_every=migrate_every, migrate=False)
     out = out[:5] + (out[5][0], out[6][0])       # the one interval's best
@@ -549,47 +624,102 @@ def ga_streamed_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
     return out + (elite_x, widx)
 
 
+def ga_streamed_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
+                            program: F.FitnessProgram, migrate_every: int,
+                            tile_islands: int = 1, migrate: bool = True,
+                            intervals: int = 1, splice: bool = False
+                            ) -> Tuple[torch.Tensor, ...]:
+    """K3's function in plain PyTorch, on any device.  Without `splice`: one
+    interval of every island and, with `migrate`, the pre-splice elites and
+    worst slots of the migration rule set.  With `splice`: `intervals` such
+    passes, each followed (with `migrate`) by the splice of the elites,
+    shifted by one island, into the worst slots; returns K2's outputs.  The
+    tile is a launch shape only and changes nothing here."""
+    run = dict(cfg=cfg, program=program, migrate_every=migrate_every,
+               migrate=migrate)
+    if not splice:
+        return _streamed_pass(x, sel, cross, mut, **run)
+    bys, bxs = [], []
+    for _ in range(intervals):
+        out = _streamed_pass(x, sel, cross, mut, **run)
+        x, sel, cross, mut, ymig, by, bx = out[:7]
+        if migrate:
+            elite, widx = out[7:]
+            x = ISL.splice_at(x, widx, torch.roll(elite, 1, dims=-2))
+        bys.append(by)
+        bxs.append(bx)
+    return (x, sel, cross, mut, ymig, torch.stack(bys), torch.stack(bxs))
+
+
 def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
                              program: F.FitnessProgram, migrate_every: int,
-                             tile_islands: int = 1, migrate: bool = True
+                             tile_islands: int = 1, migrate: bool = True,
+                             intervals: int = 1, splice: bool = False
                              ) -> Tuple[torch.Tensor, ...]:
-    """One migration interval of every island of [G, I, ...] stacks, one
-    block walking `tile_islands` islands in turn (see the module docstring
-    for the contract).  The caller splices the returned elites, shifted by
-    one island, into the worst slots between passes."""
+    """Streamed epochs of [G, I, ...] stacks, one block walking
+    `tile_islands` islands (see the module docstring for the contract).
+    Without `splice` (the TPU kernel's form) one interval, and the caller
+    splices the returned elites, shifted by one island, into the worst
+    slots.  With `splice`, `intervals` intervals and the ring inside the
+    kernel: a cooperative launch whose blocks must co-reside, whole groups
+    in waves the card holds (`streamed_waves`); a group whose blocks do not
+    fit raises."""
     _check_epoch("ga_streamed_epoch_kernel", x, sel, cross, mut, cfg,
-                 program, migrate_every, 1)
+                 program, migrate_every, intervals)
     g_grid, i_islands = x.shape[:2]
     if tile_islands < 1 or i_islands % tile_islands:
         raise ValueError(f"tile_islands={tile_islands} must divide the "
                          f"island count {i_islands}")
+    if not splice and intervals != 1:
+        raise ValueError("without splice=True a streamed launch runs one "
+                         f"interval, got intervals={intervals}")
     if x.device.type == "cpu":
         return ga_streamed_epoch_plain(x, sel, cross, mut, cfg=cfg,
                                        program=program,
                                        migrate_every=migrate_every,
                                        tile_islands=tile_islands,
-                                       migrate=migrate)
+                                       migrate=migrate, intervals=intervals,
+                                       splice=splice)
+    ring = migrate and splice
+    waves = 1
+    if ring:
+        cap = streamed_capacity(cfg, x.device)
+        waves = streamed_waves(g_grid, i_islands, tile_islands, cap)
+        if waves == 0:
+            raise ValueError(
+                f"a group's {i_islands // tile_islands} blocks at "
+                f"tile_islands={tile_islands} cannot co-reside: the card "
+                f"holds {cap} K3 blocks at once")
     x, sel, cross, mut = (t.contiguous() for t in (x, sel, cross, mut))
     n, v = cfg.n, cfg.v
     dev = x.device
     lo, span = program.device_consts(dev)
     outs = [torch.empty_like(t) for t in (x, sel, cross, mut)]
     y = torch.empty((g_grid, i_islands, n), dtype=torch.float32, device=dev)
-    by = torch.empty((g_grid, i_islands), dtype=torch.float32, device=dev)
-    bx = torch.empty((g_grid, i_islands, v), dtype=torch.int32, device=dev)
-    ex = torch.empty((g_grid, i_islands, v), dtype=torch.int32, device=dev)
+    lead = (intervals, g_grid, i_islands)
+    by = torch.empty(lead, dtype=torch.float32, device=dev)
+    bx = torch.empty(lead + (v,), dtype=torch.int32, device=dev)
+    ex = torch.empty(((2,) if splice else ()) + (g_grid, i_islands, v),
+                     dtype=torch.int32, device=dev)
     wi = torch.empty((g_grid, i_islands), dtype=torch.int32, device=dev)
+    # the group barriers' counters, zero at launch
+    arrived = (torch.zeros((g_grid,), dtype=torch.int32, device=dev)
+               if ring else None)
     lib = kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ga_streamed_launch(
             x.data_ptr(), sel.data_ptr(), cross.data_ptr(), mut.data_ptr(),
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
-            bx.data_ptr(), ex.data_ptr(), wi.data_ptr(), lo.data_ptr(),
-            span.data_ptr(), g_grid, i_islands, tile_islands, n, v, cfg.c,
-            cfg.idx_bits, cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
-            int(cfg.minimize), problem_id(program), migrate_every,
-            int(migrate), stream)
+            bx.data_ptr(), ex.data_ptr(), wi.data_ptr(),
+            arrived.data_ptr() if ring else None,
+            lo.data_ptr(), span.data_ptr(), g_grid, i_islands, tile_islands,
+            n, v, cfg.c, cfg.idx_bits, cfg.cut_bits, min(cfg.p, n),
+            cfg.steps_per_draw, int(cfg.minimize), problem_id(program),
+            migrate_every, intervals, int(migrate), int(splice),
+            -(-g_grid // waves), stream)
     _check_launch(err, "ga_streamed_epoch")
-    LAUNCHES["ga_streamed_epoch"] += 1
-    return tuple(outs) + (y, by, bx) + ((ex, wi) if migrate else ())
+    LAUNCHES["ga_streamed_epoch"] += waves
+    if splice:
+        return tuple(outs) + (y, by, bx)
+    return tuple(outs) + (y, by[0], bx[0]) + ((ex, wi) if migrate else ())

@@ -189,6 +189,98 @@ def test_streamed_kernel_matches_plain(cuda_device, problem, n, tile,
     _assert_kernel_equals_plain(got, want, prog.name in EXACT)
 
 
+# (islands, tile) of the ring-inside form: every tile of 1, 2 and 4 that
+# divides 9, 12 and 16 islands
+RING_TILES = [(9, 1), (12, 1), (12, 2), (12, 4), (16, 1), (16, 2), (16, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("migrate", [True, False])
+@pytest.mark.parametrize("intervals", [1, 4])
+@pytest.mark.parametrize("islands,tile", RING_TILES)
+@pytest.mark.parametrize("problem,n", [("F3", 64), ("rastrigin:8", 1024)])
+def test_streamed_ring_kernel_matches_plain(cuda_device, problem, n, islands,
+                                            tile, intervals, migrate):
+    """K3's splice form (k intervals, the ring inside one cooperative
+    launch) against its plain version: k passes with the splice between."""
+    prog, cfg = _epoch_case(problem, n, True)
+    args = _island_groups(cfg, 2, islands, cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=3, migrate=migrate,
+              intervals=intervals, splice=True)
+    before = K.LAUNCHES["ga_streamed_epoch"]
+    got = K.ga_streamed_epoch_kernel(*args, tile_islands=tile, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_streamed_epoch"] == before + 1
+    assert got[5].shape == (intervals, 2, islands)
+    want = K.ga_streamed_epoch_plain(*args, **kw)
+    _assert_kernel_equals_plain(got, want, prog.name in EXACT)
+
+
+def _past_coresidency(device):
+    """20 replica groups of 16 islands at the full width: 320 K3 blocks."""
+    prog = TF.compile_program(problem="rastrigin:8", bits_per_var=16)
+    cfg = TG.GAConfig(n=1024, c=16, v=8, mutation_rate=0.02, seed=4,
+                      mode="arith", sel_lane="gather")
+    return prog, cfg, _island_groups(cfg, 20, 16, device)
+
+
+@pytest.mark.cuda
+def test_streamed_stack_past_coresidency_takes_tile_two(cuda_device):
+    """The card holds two K3 blocks an SM, fewer than 320: the planner
+    walks two islands a block; a tile of 1 runs in two waves of whole
+    groups, and both equal the plain version."""
+    prog, cfg, args = _past_coresidency(cuda_device)
+    cap = K.streamed_capacity(cfg, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert cap == K.kernel_attrs("ga_streamed_epoch", cfg)["blocks_per_sm"] \
+        * sms
+    assert 160 <= cap < 320
+    assert K.streamed_tile_islands(cfg, 20, 16, cuda_device) == 2
+    kw = dict(cfg=cfg, program=prog, migrate_every=4, intervals=2,
+              splice=True)
+    want = K.ga_streamed_epoch_plain(*args, **kw)
+    for tile, waves in ((2, 1), (1, 2)):
+        before = K.LAUNCHES["ga_streamed_epoch"]
+        got = K.ga_streamed_epoch_kernel(*args, tile_islands=tile, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["ga_streamed_epoch"] == before + waves
+        _assert_kernel_equals_plain(got, want, False)
+
+
+@pytest.mark.cuda
+def test_pinned_tile_that_cannot_coreside_raises(cuda_device):
+    spec = ga.GASpec(problem="rastrigin:8", n=1024, bits_per_var=16,
+                     mode="arith", n_repeats=20, n_islands=16,
+                     migrate_every=16, gens_per_epoch=64, generations=64)
+    eng = ga.Engine(spec, "fused-islands")
+    assert (eng.backend.topology.plan["mode"],
+            eng.backend.topology.plan["tile_islands"]) == ("streamed", 2)
+    with pytest.raises(ValueError, match="cannot co-reside"):
+        ga.Engine(spec, "fused-islands",
+                  options=ga.EngineOptions(stream_tile_islands=1))
+    assert ga.Engine(spec, "fused-islands", options=ga.EngineOptions(
+        stream_tile_islands=4)).backend.topology.plan["tile_islands"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("generations,launches", [(30, 3), (25, 3), (10, 1)])
+def test_streamed_solve_makes_one_launch_per_k_intervals(
+        cuda_device, generations, launches):
+    """A fused-islands streamed solve launches K3 once per
+    gens_per_epoch // migrate_every intervals (the last launch takes the
+    rest) and equals `islands`."""
+    kw = dict(problem="F3", n_islands=12, n_repeats=2, gens_per_epoch=10,
+              generations=generations)
+    ref = _island_solve("islands", **kw)
+    before = dict(K.LAUNCHES)
+    got = _island_solve("fused-islands", **kw)
+    assert got.telemetry.plan.mode == "streamed"
+    assert got.telemetry.topology.launches == launches
+    assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
+        "ga_generation": 0, "ga_epoch": 0, "ga_streamed_epoch": launches}
+    _assert_same_solve(got, ref, traj=False)
+
+
 @pytest.mark.cuda
 def test_epoch_shared_memory_and_clusters(cuda_device):
     lib = K.kernel_library()
@@ -272,8 +364,9 @@ BODY_CASES = ([("F3", 64, s, 0.02) for s in (1, 2, 3, 7, 31, 32, 40)]
 @pytest.mark.parametrize("problem,n,steps,rate", BODY_CASES)
 def test_generation_body_matches_plain(cuda_device, problem, n, steps,
                                        rate):
-    """K1, K2 (ring, free, boundary) and K3 (tiles 1 and 2) each equal
-    their plain version on the same card tensors."""
+    """K1, K2 (ring, free, boundary) and K3 (tiles 1 and 2, one pass and
+    the ring-inside form) each equal their plain version on the same card
+    tensors, in the 3-clock build and the run-time one."""
     prog = TF.compile_program(problem=problem, bits_per_var=10)
     cfg = TG.GAConfig(n=n, c=10, v=prog.n_vars, mutation_rate=rate, seed=5,
                       minimize=n != 16, steps_per_draw=steps, mode="arith",
@@ -299,9 +392,13 @@ def test_generation_body_matches_plain(cuda_device, problem, n, steps,
         _assert_kernel_equals_plain(
             K.ga_streamed_epoch_kernel(*eargs, tile_islands=tile, **run),
             K.ga_streamed_epoch_plain(*eargs, **run), exact)
+        ring = dict(run, intervals=2, splice=True)
+        _assert_kernel_equals_plain(
+            K.ga_streamed_epoch_kernel(*eargs, tile_islands=tile, **ring),
+            K.ga_streamed_epoch_plain(*eargs, **ring), exact)
     torch.cuda.synchronize()
     assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
-        "ga_generation": 2, "ga_epoch": 3, "ga_streamed_epoch": 2}
+        "ga_generation": 2, "ga_epoch": 3, "ga_streamed_epoch": 4}
 
 
 # ---------------------------------------------------------------------------

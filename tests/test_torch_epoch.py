@@ -12,6 +12,9 @@ version.
 * K2's plain version against the port's own between-launch oracle
   (`islands.make_local_step`), bit-exact: one launch of three intervals is
   three oracle epochs.
+* K3's splice form (k intervals, the ring inside) against k one-interval
+  passes with the splice between them, and against K2's plain version,
+  bit-exact.
 * `lfsr_advance_plain` against `repro.kernels.ref.lfsr_advance_ref` over the
   shapes and clocks of tests/test_kernels.py, bit-exact.
 * What the wrappers refuse, on every device, and the kernel build's cache
@@ -157,6 +160,58 @@ def test_streamed_tile_is_a_launch_shape_only():
     with pytest.raises(ValueError, match="must divide the island count 4"):
         K.ga_streamed_epoch_kernel(*tst, cfg=tcfg, program=tprog,
                                    migrate_every=3, tile_islands=3)
+
+
+def _island_stack(tcfg, tprog, groups, islands):
+    tcfg = dataclasses.replace(tcfg, v=tprog.n_vars)
+    st = TISL.init_islands_fast(TISL.IslandConfig(
+        ga=tcfg, n_islands=groups * islands), device="cpu")
+    return tcfg, [t.reshape((groups, islands) + t.shape[1:])
+                  for t in (st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)]
+
+
+@pytest.mark.parametrize("migrate", [True, False])
+@pytest.mark.parametrize("intervals", [1, 2, 4])
+@pytest.mark.parametrize("islands", [9, 12, 16])
+@pytest.mark.parametrize("problem", ["F1", "F2", "F3", "rastrigin:4"])
+def test_streamed_splice_form_is_passes_with_splices(problem, islands,
+                                                     intervals, migrate):
+    """K3's splice form (k intervals, the ring inside) is k one-interval
+    passes with `splice_at` of the shifted elites between them, bit for
+    bit, and so K2's plain function: the post-splice state, the last
+    interval's pre-splice y and the best of every interval."""
+    _, tcfg, _, _, _, tprog = _case(problem, n=16)
+    tcfg, grouped = _island_stack(tcfg, tprog, 2, islands)
+    run = dict(cfg=tcfg, program=tprog, migrate_every=2, migrate=migrate)
+    got = K.ga_streamed_epoch_kernel(*grouped, intervals=intervals,
+                                     splice=True, **run)
+    x, sel, cross, mut = grouped
+    bys, bxs = [], []
+    for _ in range(intervals):
+        out = K.ga_streamed_epoch_kernel(x, sel, cross, mut, **run)
+        x, sel, cross, mut, y, by, bx = out[:7]
+        if migrate:
+            x = TISL.splice_at(x, out[8], torch.roll(out[7], 1, dims=1))
+        bys.append(by)
+        bxs.append(bx)
+    want = (x, sel, cross, mut, y, torch.stack(bys), torch.stack(bxs))
+    k2 = K.ga_epoch_plain(*grouped, cfg=tcfg, program=tprog,
+                          migrate_every=2, intervals=intervals,
+                          migrate=migrate)
+    assert got[5].shape == (intervals, 2, islands)
+    for a, b, c in zip(got, want, k2):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_streamed_wrapper_runs_several_intervals_only_with_splice():
+    _, tcfg, _, tst, _, tprog = _case(islands=4, groups=2)
+    run = dict(cfg=tcfg, program=tprog, migrate_every=2)
+    with pytest.raises(ValueError, match="without splice=True"):
+        K.ga_streamed_epoch_kernel(*tst, intervals=2, **run)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        K.ga_streamed_epoch_kernel(*tst, intervals=0, splice=True, **run)
+    one = K.ga_streamed_epoch_kernel(*tst, splice=True, **run)
+    assert len(one) == 7 and one[5].shape == (1, 2, 4)
 
 
 def test_epoch_wrappers_refuse_what_the_kernels_cannot_take():

@@ -17,6 +17,8 @@ plans.
 * Every fused plan (gridded, resident, resident-free, streamed, any
   streamed tile) against the port's `islands`: bit-exact on all seven
   problems, since on the CPU each kernel wrapper runs its plain version.
+* The streamed plan's launch count and the planner's tile, from a card's
+  capacity (pretended here: the capacity query needs a card).
 """
 
 import dataclasses
@@ -414,6 +416,90 @@ def test_plan_telemetry_reports_block_bytes():
     assert tele.plan.smem_estimate_bytes == K.smem_bytes(32, 2, p)
     assert _segment(kw, "islands", 5).telemetry.plan.smem_estimate_bytes \
         is None
+
+
+@pytest.mark.parametrize("groups,islands,cap,tile,waves", [
+    (8, 16, 264, 1, 1), (20, 16, 264, 2, 1), (20, 12, 264, 1, 1),
+    (40, 16, 264, 4, 1), (1, 9, 264, 1, 1), (300, 16, 264, 16, 2),
+    (3, 9, 16, 3, 1)])
+def test_streamed_tile_from_capacity(groups, islands, cap, tile, waves):
+    """The least divisor of I whose G * I / T blocks the card holds at
+    once; past that, T = I with whole groups in waves."""
+    assert K.tile_for_capacity(groups, islands, cap) == tile
+    assert K.streamed_waves(groups, islands, tile, cap) == waves
+
+
+def test_streamed_waves_refuse_a_group_that_does_not_fit():
+    assert K.streamed_waves(4, 16, 1, 15) == 0
+    assert K.streamed_waves(4, 16, 1, 16) == 4
+    assert K.streamed_waves(4, 16, 2, 16) == 2
+
+
+def _on_card(monkeypatch, cap=264):
+    """The planner as on a card that holds `cap` K3 blocks at once."""
+    monkeypatch.setattr(K, "streamed_capacity", lambda cfg, device: cap)
+    return torch.device("cuda")
+
+
+def test_planner_tile_follows_the_card(monkeypatch):
+    cfg = TG.GAConfig(n=1024, c=16, v=8, mode="arith", sel_lane="gather")
+    args = dict(executor="fused", migration="ring", gens_per_epoch=64,
+                migrate_every=16)
+    # on the CPU the tile is 1 whatever the stack: the plain version
+    # ignores it
+    assert K.epoch_mode_candidates(cfg, 16, groups=20, device="cpu",
+                                   **args)[0]["tile_islands"] == 1
+    dev = _on_card(monkeypatch)
+    for groups, tile in ((8, 1), (20, 2), (40, 4)):
+        c = K.epoch_mode_candidates(cfg, 16, groups=groups, device=dev,
+                                    **args)
+        assert (c[0]["mode"], c[0]["tile_islands"]) == ("streamed", tile)
+    assert K.streamed_tile_reason(cfg, 20, 16, 2, dev) is None
+    assert K.streamed_tile_reason(cfg, 20, 16, 4, dev) is None
+    assert "cannot co-reside" in K.streamed_tile_reason(cfg, 20, 16, 1, dev)
+    assert "must divide" in K.streamed_tile_reason(cfg, 20, 16, 5, dev)
+    assert K.streamed_tile_reason(cfg, 20, 16, 1, "cpu") is None
+
+
+def test_pinned_tile_that_cannot_coreside_is_refused(monkeypatch):
+    """A pinned tile whose cooperative launch the card cannot hold at once
+    raises when the engine plans, before anything runs."""
+    dev = _on_card(monkeypatch)
+    spec = ga.GASpec(**_kw(problem="rastrigin:8", n=1024, bits_per_var=16,
+                           n_repeats=20, n_islands=16, migrate_every=16,
+                           gens_per_epoch=64, generations=64))
+    ex = ga.backends.FusedExecutor(spec)
+    topo = ga.backends.IslandRingTopology(spec, ex, device=dev)
+    assert (topo.plan["mode"], topo.plan["tile_islands"]) == ("streamed", 2)
+    with pytest.raises(ValueError, match="cannot co-reside"):
+        ga.backends.IslandRingTopology(spec, ex, device=dev,
+                                       stream_tile_islands=1)
+
+
+@pytest.mark.parametrize("generations,gens_per_epoch,launches", [
+    (20, 10, 2), (25, 10, 3), (30, 15, 2), (15, 20, 1)])
+def test_streamed_plan_launches_once_per_k_intervals(
+        monkeypatch, generations, gens_per_epoch, launches):
+    """ceil(epochs / k) K3 calls, each of k intervals with the ring inside
+    (splice=True), and the run equals `islands`."""
+    calls = []
+    real = K.ga_streamed_epoch_kernel
+
+    def counted(*a, **kw):
+        calls.append((kw["intervals"], kw["splice"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(K, "ga_streamed_epoch_kernel", counted)
+    kw = _kw(n_islands=12, n_repeats=2, gens_per_epoch=gens_per_epoch,
+             generations=generations)
+    seg = _segment(kw, "fused-islands", generations)
+    epochs, k = generations // 5, gens_per_epoch // 5
+    assert seg.telemetry.plan.mode == "streamed"
+    assert seg.telemetry.topology.launches == launches == len(calls)
+    assert [c[0] for c in calls] == [min(k, epochs - k * j)
+                                     for j in range(launches)]
+    assert all(c[1] for c in calls)
+    _assert_same_run(seg, _segment(kw, "islands", generations), traj=False)
 
 
 # ---------------------------------------------------------------------------
