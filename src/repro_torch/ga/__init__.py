@@ -27,6 +27,16 @@
                                                islands
     =============  ================  ========  ===========================
 
+Non-paper operators (selection ``tournament4``, ``roulette``, ``rank``,
+``tournament_elite``; crossover ``uniform``/``none``; mutation ``none``)
+run on ``reference`` and ``islands``, as in the JAX package.
+
+Every backend also runs chunked (`Engine.run_chunked`, with checkpoints in
+the JAX package's format), packed (`PackedEngine`: many jobs as the
+replica slots of one run, each bit-identical to its solo run) and repacked
+(`repack_checkpoint`); what an engine builds for a spec shape is shared
+through `RUNNER_CACHE`.
+
 Runs go to the card unless `EngineOptions(device="cpu")` asks for the CPU.
 """
 
@@ -37,8 +47,11 @@ from repro_torch.ga.spec import GASpec, paper_spec
 from repro_torch.ga.operators import (CROSSOVER, MUTATION, PAPER_PIPELINE,
                                       SELECTION, CrossoverOp, MutationOp,
                                       SelectionOp, make_apply_ops,
-                                      make_generation, register_crossover,
-                                      register_mutation, register_selection)
+                                      make_generation, no_crossover,
+                                      no_mutation, register_crossover,
+                                      register_mutation, register_selection,
+                                      uniform)
+from repro_torch.ga.compile_cache import RUNNER_CACHE, CompileCache
 from repro_torch.ga.options import EngineOptions, resolve_options
 from repro_torch.ga.telemetry import (TELEMETRY_VERSION, PlanInfo,
                                       ReplicaStats, RunTelemetry,
@@ -46,13 +59,15 @@ from repro_torch.ga.telemetry import (TELEMETRY_VERSION, PlanInfo,
 from repro_torch.ga.backends import (BACKENDS, EXECUTORS, TOPOLOGIES, Backend,
                                      Executor, Segment, Topology)
 from repro_torch.ga.engine import (BackendUnsupported, Engine, EngineResult,
-                                   capability_matrix, resolve_backend, solve)
+                                   PackedEngine, capability_matrix,
+                                   repack_checkpoint, resolve_backend, solve)
 
 __all__ = [
     "GASpec", "paper_spec",
     "PROBLEMS", "ProblemDef", "FitnessProgram", "compile_program",
     "register_problem", "resolve_problem",
     "Engine", "EngineResult", "solve", "resolve_backend",
+    "PackedEngine", "repack_checkpoint", "RUNNER_CACHE", "CompileCache",
     "capability_matrix", "BackendUnsupported",
     "EngineOptions", "resolve_options",
     "RunTelemetry", "PlanInfo", "TopologyInfo", "ReplicaStats",
@@ -63,4 +78,5 @@ __all__ = [
     "SelectionOp", "CrossoverOp", "MutationOp",
     "register_selection", "register_crossover", "register_mutation",
     "make_generation", "make_apply_ops",
+    "uniform", "no_crossover", "no_mutation",
 ]

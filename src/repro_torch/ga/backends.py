@@ -35,8 +35,14 @@ The registry exposes the compositions under the JAX package's names:
   fused-islands  = fused     × island_ring
 
 Each backend implements `supports(spec)` (capability check → reason string
-or None), `init()` (backend-native state) and `segment(state, gens)`
+or None), `init()` (backend-native state), `init_packed(seeds)` (one
+replica slot per seed, for job packing) and `segment(state, gens)`
 (advance `gens` generations, returning the new state + telemetry).
+
+What a backend builds for a spec shape — the executor with its compiled
+FitnessProgram and the runner closures of each launch shape — comes from
+the process-wide `ga.RUNNER_CACHE`, so a second engine of the same shape
+builds none of it again.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import ga as G
 from repro_torch.core import islands as ISL
+from repro_torch.ga import compile_cache as CC
 from repro_torch.ga import operators as OPS
 from repro_torch.ga import telemetry as RT
 from repro_torch.ga.options import plan_mode, resolve_options
@@ -85,14 +92,31 @@ def _stack_states(cfg: G.GAConfig, n_replicas: int, device) -> G.GAState:
                          device=device)
 
 
+def _islands_seeded(icfg: ISL.IslandConfig, seed: int, device) -> G.GAState:
+    return ISL.init_islands_fast(dataclasses.replace(
+        icfg, ga=dataclasses.replace(icfg.ga, seed=seed)), device=device)
+
+
+def _stack_island_replicas_seeded(icfg: ISL.IslandConfig, seeds,
+                                  device) -> G.GAState:
+    """[R, I, ...] stack with one island set per seed: replica i is
+    bit-identical to a solo run seeded `seeds[i]`, the contract job
+    packing relies on."""
+    return G.stack_states([_islands_seeded(icfg, s, device) for s in seeds])
+
+
 def _stack_island_replicas(icfg: ISL.IslandConfig, n_replicas: int,
                            device) -> G.GAState:
     """[R, I, ...] stack: replica r re-seeds the island seed stream with
     `seed + r`, so replica 0 reproduces the n_repeats=1 island run."""
-    return G.stack_states([ISL.init_islands_fast(
-        dataclasses.replace(icfg, ga=dataclasses.replace(
-            icfg.ga, seed=icfg.ga.seed + r)), device=device)
-        for r in range(n_replicas)])
+    return _stack_island_replicas_seeded(
+        icfg, [icfg.ga.seed + r for r in range(n_replicas)], device)
+
+
+def _check_seeds(seeds, n_repeats: int) -> None:
+    if len(seeds) != n_repeats:
+        raise ValueError(f"{len(seeds)} seeds packed into a spec with "
+                         f"n_repeats={n_repeats}")
 
 
 class Backend:
@@ -114,6 +138,13 @@ class Backend:
         raise NotImplementedError
 
     def init(self):
+        raise NotImplementedError
+
+    def init_packed(self, seeds):
+        """Stacked state with one replica SLOT per seed — the layout job
+        packing (`repro_torch.ga.engine.PackedEngine`) runs many tenants
+        through: slot i is bit-identical to a solo run seeded
+        `seeds[i]`."""
         raise NotImplementedError
 
     def segment(self, state, gens: int) -> Segment:
@@ -143,6 +174,7 @@ class Executor:
     def __init__(self, spec: GASpec):
         self.spec = spec
         self.cfg = spec.ga_config()
+        self.program = spec.program()
         self.fit = spec.fitness_fn()
 
     @staticmethod
@@ -196,7 +228,6 @@ class FusedExecutor(Executor):
     def __init__(self, spec: GASpec):
         super().__init__(spec)
         self.gens_per_epoch = spec.gens_per_epoch
-        self.program = spec.program()
 
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
@@ -275,12 +306,29 @@ class Topology:
         # island_ring planner reads them — single has one launch shape
         self.plan_override = plan_override
         self.stream_tile_islands = stream_tile_islands
+        self._cache: Dict[Any, Any] = {}   # instance memo over RUNNER_CACHE
+
+    def _cached_runner(self, builder, *parts):
+        """Instance memo in front of the process-global RUNNER_CACHE, so the
+        global hit/miss counters record one resolution per topology
+        instance (one per Engine build) instead of one per launch.  The
+        key holds the spec's shape, this composition and the device."""
+        fn = self._cache.get(parts)
+        if fn is None:
+            key = CC.runner_key(self.spec, self.name, self.executor.name,
+                                self.device, *parts)
+            fn = CC.RUNNER_CACHE.get_or_build(key, builder)
+            self._cache[parts] = fn
+        return fn
 
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
         raise NotImplementedError
 
     def init(self):
+        raise NotImplementedError
+
+    def init_packed(self, seeds):
         raise NotImplementedError
 
     def segment(self, state, gens: int) -> Segment:
@@ -308,18 +356,27 @@ class SingleTopology(Topology):
             return G.init_state(self.cfg, device=self.device)
         return _stack_states(self.cfg, self.spec.n_repeats, self.device)
 
+    def init_packed(self, seeds):
+        _check_seeds(seeds, self.spec.n_repeats)
+        return G.init_states(self.cfg, list(seeds), device=self.device)
+
+    def _runner(self, gens: int, solo: bool):
+        return self._cached_runner(
+            lambda: (self.executor.solo(gens) if solo
+                     else self.executor.block(gens)), "block", gens, solo)
+
     def segment(self, state, gens: int) -> Segment:
         mini = self.spec.minimize
         tele = RT.RunTelemetry()
         tele.topology.launches = self.executor.launches(gens)
         if self._solo():
-            out: G.GARun = self.executor.solo(gens)(state)
+            out: G.GARun = self._runner(gens, True)(state)
             return Segment(state=out.state, best_y=float(out.best_y),
                            best_x=convert.words_to_numpy(out.best_x),
                            traj_best=out.traj_best.cpu().numpy(),
                            traj_mean=out.traj_mean.cpu().numpy(), gens=gens,
                            telemetry=tele)
-        state, by, bx, tb, tm = self.executor.block(gens)(state)
+        state, by, bx, tb, tm = self._runner(gens, False)(state)
         per_rep = by.cpu().numpy()                             # [R]
         bx = convert.words_to_numpy(bx)                        # [R, V]
         tb, tm = tb.cpu().numpy(), tm.cpu().numpy()            # [R, T]
@@ -371,6 +428,9 @@ class IslandRingTopology(Topology):
                          stream_tile_islands=stream_tile_islands)
         self.icfg = ISL.IslandConfig(ga=self.cfg, n_islands=spec.n_islands,
                                      migrate_every=spec.migrate_every)
+        # planned per engine, not cached: cheap (the card's occupancy it
+        # reads is cached in kernels.ga_step) and it follows the planner's
+        # inputs wherever they change
         self.plan = self._epoch_plan()
 
     def _epoch_plan(self) -> Dict[str, Any]:
@@ -422,6 +482,12 @@ class IslandRingTopology(Topology):
                                           self.device)
         return ISL.init_islands_fast(self.icfg, device=self.device)
 
+    def init_packed(self, seeds):
+        _check_seeds(seeds, self.spec.n_repeats)
+        if self.spec.n_repeats == 1:
+            return _islands_seeded(self.icfg, seeds[0], self.device)
+        return _stack_island_replicas_seeded(self.icfg, seeds, self.device)
+
     # ---- runners: state -> (state', best_y, best_x, traj_mean) ----------
     # best_* hold each island's best of every migration interval the launch
     # ran ([K, R?, I]); traj_mean the final fitness means ([R?, I]).  The
@@ -469,7 +535,7 @@ class IslandRingTopology(Topology):
             intervals = k // e
         else:
             e, intervals = k, 1
-        prog, sq = self.spec.program(), self._ungrouped
+        prog, sq = self.executor.program, self._ungrouped
 
         def launch(states):
             g = self._grouped(states)
@@ -489,7 +555,7 @@ class IslandRingTopology(Topology):
         migration, none) inside the kernel."""
         e, tile = self.icfg.migrate_every, self.plan["tile_islands"]
         migrate = self.spec.migration == "ring"
-        prog, sq = self.spec.program(), self._ungrouped
+        prog, sq = self.executor.program, self._ungrouped
 
         def launch(states):
             g = self._grouped(states)
@@ -514,7 +580,9 @@ class IslandRingTopology(Topology):
             sched, left = [], epochs * e
             while left:
                 g = min(g_max, left)
-                sched.append(self._resident_runner(g, migrate=False))
+                sched.append(self._cached_runner(
+                    lambda g=g: self._resident_runner(g, migrate=False),
+                    "resident-free", g))
                 left -= g
             return sched, g_max
         per_launch = self.plan["epochs_per_launch"]
@@ -522,11 +590,15 @@ class IslandRingTopology(Topology):
         while left:
             k = min(per_launch, left)
             if mode == "resident":
-                sched.append(self._resident_runner(k))
+                sched.append(self._cached_runner(
+                    lambda k=k: self._resident_runner(k), "resident", k))
             elif mode == "streamed":
-                sched.append(self._streamed_runner(k))
+                sched.append(self._cached_runner(
+                    lambda k=k: self._streamed_runner(k), "streamed", k,
+                    self.plan["tile_islands"]))
             else:
-                sched.append(self._gridded_runner())
+                sched.append(self._cached_runner(self._gridded_runner,
+                                                 "gridded"))
             left -= k
         return sched, e * per_launch
 
@@ -597,7 +669,11 @@ class ComposedBackend(Backend):
 
     def __init__(self, spec: GASpec, *, options=None):
         super().__init__(spec, options=options)
-        self.executor: Executor = self.executor_cls(self.spec)
+        # executors are seed-free (cfg.seed only seeds init): one per shape
+        self.executor: Executor = CC.RUNNER_CACHE.get_or_build(
+            CC.runner_key(self.spec, self.topology_cls.name,
+                          self.executor_cls.name, self.device, "executor"),
+            lambda: self.executor_cls(self.spec))
         self.topology: Topology = self.topology_cls(
             self.spec, self.executor, device=self.device,
             plan_override=self.options.plan_override,
@@ -612,6 +688,9 @@ class ComposedBackend(Backend):
 
     def init(self):
         return self.topology.init()
+
+    def init_packed(self, seeds):
+        return self.topology.init_packed(seeds)
 
     def segment(self, state, gens: int) -> Segment:
         seg = self.topology.segment(state, gens)

@@ -9,8 +9,10 @@ single-point crossover, XOR mutation).  Each stage is a protocol + registry:
 
 All operators consume the same LFSR banks as the paper's modules, so the
 GAState layout is identical whichever combination is selected.  The
-registries hold the paper pipeline; `register_*` adds more, which run on
-the reference executor (the fused kernel hardwires the paper pipeline).
+registries hold the JAX package's operators under its names; `register_*`
+adds more.  Everything but the paper pipeline runs on the reference
+executor and the `islands` topology (the fused kernels hardwire the
+paper pipeline).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Callable, Dict, Protocol, Tuple
 import torch
 
 from repro_torch.core import ga as G
+from repro_torch.core import lfsr
+from repro_torch.core import selection as SEL
 from repro_torch.core.ga import GAConfig, GAState
 
 
@@ -65,9 +69,54 @@ def register_mutation(name: str):
     return deco
 
 
-SELECTION["tournament"] = G._select      # the paper's hardware SM
+# ---------------------------------------------------------------------------
+# Built-in selection schemes (paper SM + the Sec. 2 survey variants)
+# ---------------------------------------------------------------------------
+
+SELECTION["tournament"] = SEL.tournament        # the paper's hardware SM
+SELECTION["tournament4"] = SEL.tournament_k     # k=4, stronger pressure
+SELECTION["roulette"] = SEL.roulette            # fitness-proportional
+SELECTION["rank"] = SEL.rank                    # linear-rank
+SELECTION["tournament_elite"] = SEL.with_elitism(SEL.tournament, n_elite=1)
+
+
+# ---------------------------------------------------------------------------
+# Built-in crossover operators
+# ---------------------------------------------------------------------------
+
 CROSSOVER["single_point"] = G._crossover  # the paper's CM (Eqs. 12-20)
+
+
+@register_crossover("uniform")
+def uniform(w, cross_lfsr, cfg: GAConfig):
+    """Uniform crossover: each bit of each offspring pair is swapped
+    independently with p=1/2, using the pair's CM LFSR word as the mask.
+    Bit-conserving like the paper's CM (same XOR-sum invariant)."""
+    cross_lfsr, r = lfsr.draw(cross_lfsr, cfg.steps_per_draw)  # [..., V, N/2]
+    m = (r & cfg.var_mask).transpose(-1, -2)                    # [..., N/2, V]
+    w1, w2 = w[..., 0::2, :], w[..., 1::2, :]
+    z1 = (w1 & m) | (w2 & ~m)
+    z2 = (w2 & m) | (w1 & ~m)
+    return torch.stack([z1, z2], dim=-2).reshape(w.shape), cross_lfsr
+
+
+@register_crossover("none")
+def no_crossover(w, cross_lfsr, cfg: GAConfig):
+    """Pass-through CM (selection + mutation only)."""
+    return w, cross_lfsr
+
+
+# ---------------------------------------------------------------------------
+# Built-in mutation operators
+# ---------------------------------------------------------------------------
+
 MUTATION["xor"] = G._mutate               # the paper's MM: XOR the first P
+
+
+@register_mutation("none")
+def no_mutation(z, mut_lfsr, cfg: GAConfig):
+    """Pass-through MM."""
+    return z, mut_lfsr
 
 
 PAPER_PIPELINE = ("tournament", "single_point", "xor")

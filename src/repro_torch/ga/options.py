@@ -16,9 +16,13 @@ Knobs:
     thread block walks in turn; must divide the island count, and on a
     card its blocks must co-reside as the planner's tile's do).  A launch
     shape only: every tile gives the same result.
+  * faults — arm the `repro_torch.faults` injection sites of the chunked
+    runs and their checkpoint writes: None reads the ambient
+    ``REPRO_GA_FAULTS`` rules, False disarms, a rule string or a
+    `FaultInjector` arms those rules.
 
-Options only choose launch shapes, never results: every plan is
-bit-identical in state and best tracking.
+The launch options only choose launch shapes, never results: every plan
+is bit-identical in state and best tracking.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ class EngineOptions:
     device: str = "cuda"
     plan_override: Any = None
     stream_tile_islands: Optional[int] = None
+    faults: Any = None
 
     def __post_init__(self):
         dev = torch.device(self.device)

@@ -20,6 +20,7 @@ import numpy as np
 
 from repro_torch.core import fitness as F
 from repro_torch.core import ga as G
+from repro_torch.ga import compile_cache as CC
 from repro_torch.ga import operators as OPS
 
 
@@ -192,14 +193,18 @@ class GASpec:
 
     def program(self) -> F.FitnessProgram:
         """The spec's fitness compiled for every executor (LUT ROMs when
-        mode='lut', the arith stage always).  Cached per spec instance."""
+        mode='lut', the arith stage always).  One program per spec shape
+        in the process (`ga.RUNNER_CACHE`, so its constants on a device
+        are made once), memoized on the spec instance."""
         cached = self.__dict__.get("_program")
         if cached is None:
-            cached = F.compile_program(problem=self.problem,
-                                       fitness=self.fitness,
-                                       bounds=self.bounds, n_vars=self.v,
-                                       bits_per_var=self.bits_per_var,
-                                       mode=self.mode, minimize=self.minimize)
+            cached = CC.RUNNER_CACHE.get_or_build(
+                ("program",) + self.compile_key(),
+                lambda: F.compile_program(
+                    problem=self.problem, fitness=self.fitness,
+                    bounds=self.bounds, n_vars=self.v,
+                    bits_per_var=self.bits_per_var, mode=self.mode,
+                    minimize=self.minimize))
             object.__setattr__(self, "_program", cached)
         return cached
 

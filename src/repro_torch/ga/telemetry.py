@@ -8,6 +8,8 @@
   * `per_repeat: ReplicaStats | None` — per-replica best/trajectory arrays
     when the run stacked `n_repeats` replicas.
 
+`resumed_from` marks the first chunk of a run resumed from a checkpoint.
+
 The fields are the JAX package's that the port's topologies fill, under
 the same names, so a consumer reads both packages the same way; the one
 byte field is `smem_estimate_bytes` where the JAX package has its VMEM
@@ -92,3 +94,10 @@ class RunTelemetry:
     per_repeat: Optional[ReplicaStats] = None
     problem: Optional[str] = None
     n_vars: Optional[int] = None
+    resumed_from: Optional[int] = None   # ckpt step (gens) this segment
+                                         # resumed from, first chunk only
+
+    def job_view(self) -> "RunTelemetry":
+        """Plan/topology facets without the per-repeat arrays — what a
+        packed job's telemetry carries after its slots are sliced out."""
+        return dataclasses.replace(self, per_repeat=None)

@@ -468,3 +468,85 @@ def test_fused_islands_plans_match_islands_on_card(cuda_device, problem):
             assert got.telemetry.plan.mode == plan
             assert K.LAUNCHES[launched] > before
             _assert_same_solve(got, ref, traj=plan != "resident-free")
+
+
+# ---------------------------------------------------------------------------
+# Packs, chunks and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+PACK_CASES = [("fused", dict(gens_per_epoch=8)),
+              ("fused-islands", dict(n_islands=4, migrate_every=4,
+                                     gens_per_epoch=8)),
+              ("fused-islands", dict(n_islands=12, migrate_every=4,
+                                     gens_per_epoch=8))]
+
+
+def _pack_specs(kw):
+    base = dict(problem="F3", n=64, bits_per_var=10, mode="arith",
+                mutation_rate=0.05, generations=32, **kw)
+    return [ga.GASpec(seed=11, **base), ga.GASpec(seed=40, **base),
+            ga.GASpec(seed=7, n_repeats=2, **base)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kw", PACK_CASES)
+def test_pack_crash_and_resume_match_solo_on_card(cuda_device, tmp_path,
+                                                  backend, kw):
+    """A pack crashed at chunk 3 by `chunk_crash` resumes in a fresh engine
+    from step 16 and ends with every job bit-identical to its solo run on
+    the card: best, best_params and the final state slice."""
+    from repro_torch import faults as FLT
+    from repro_torch.ckpt import checkpoint as CKPT
+    specs = _pack_specs(kw)
+    ck = str(tmp_path / "pack")
+    crash = ga.EngineOptions(faults="chunk_crash:at=3")
+    seen = []
+    with pytest.raises(FLT.ChunkCrash):
+        for tele in ga.PackedEngine(specs, backend, options=crash) \
+                .run_chunked(chunk_generations=8, ckpt_dir=ck):
+            seen.append(tele["gens_done"])
+    assert seen == [8, 16]
+    pe = ga.PackedEngine(specs, backend)
+    teles = list(pe.run_chunked(chunk_generations=8, ckpt_dir=ck))
+    assert teles[0]["resumed_from"] == 16
+    assert [t["gens_done"] for t in teles] == [24, 32]
+    final, _ = CKPT.restore(ck, 32, pe.init_state())
+    for spec, jt in zip(specs, teles[-1]["jobs"]):
+        solo = ga.solve(spec, backend=backend)
+        assert solo.backend == backend
+        assert jt["best_fitness"] == solo.best_fitness
+        np.testing.assert_array_equal(jt["best_params"], solo.best_params)
+        off, cnt = jt["slots"]
+        for a, b in zip(final, solo.state):
+            assert a.device.type == "cuda" and b.device.type == "cuda"
+            assert torch.equal(a[off:off + cnt].reshape(b.shape), b)
+
+
+@pytest.mark.cuda
+def test_restore_places_every_leaf_on_the_card(cuda_device, tmp_path):
+    from repro_torch.ckpt import checkpoint as CKPT
+    eng = ga.Engine(_pack_specs({})[2], "fused")
+    st = eng.init_state()
+    CKPT.save(str(tmp_path), 3, st, extra={"backend": "fused"})
+    got, _ = CKPT.restore(str(tmp_path), 3, st)
+    for a, b in zip(got, st):
+        assert a.device == b.device and a.device.type == "cuda"
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_repack_on_card_matches_solo(cuda_device, tmp_path):
+    specs = _pack_specs(dict(gens_per_epoch=8))
+    pack = str(tmp_path / "pack")
+    for tele in ga.PackedEngine(specs, "fused").run_chunked(
+            chunk_generations=8, ckpt_dir=pack):
+        if tele["gens_done"] >= 16:
+            break
+    pair = str(tmp_path / "pair")
+    assert ga.repack_checkpoint(pack, specs, [0, 2], pair, "fused") == 16
+    last = list(ga.PackedEngine([specs[0], specs[2]], "fused").run_chunked(
+        chunk_generations=8, ckpt_dir=pair))[-1]
+    for spec, jt in zip((specs[0], specs[2]), last["jobs"]):
+        solo = ga.solve(spec, backend="fused")
+        assert jt["best_fitness"] == solo.best_fitness
+        np.testing.assert_array_equal(jt["best_params"], solo.best_params)
