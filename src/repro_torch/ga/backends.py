@@ -128,6 +128,11 @@ class Backend:
 
     def __init__(self, spec: GASpec, *, options=None):
         self.options = resolve_options(options)
+        if (self.options.sel_lane is not None
+                and self.options.sel_lane != spec.sel_lane):
+            # rebuild the spec so the override flows through validation,
+            # ga_config() and compile_key() like a spec-level pin would
+            spec = dataclasses.replace(spec, sel_lane=self.options.sel_lane)
         self.spec = spec
         self.cfg = spec.ga_config()
         self.device = self.options.torch_device()

@@ -16,10 +16,17 @@ Knobs:
     thread block walks in turn; must divide the island count, and on a
     card its blocks must co-reside as the planner's tile's do).  A launch
     shape only: every tile gives the same result.
+  * sel_lane — override the spec's tournament gather lane ("onehot" |
+    "gather" | "auto"); None keeps the spec's own setting.  The backend
+    rebuilds the spec with the override, so it is validated (the onehot
+    N cap) and keyed like a spec-level pin.
   * faults — arm the `repro_torch.faults` injection sites of the chunked
-    runs and their checkpoint writes: None reads the ambient
-    ``REPRO_GA_FAULTS`` rules, False disarms, a rule string or a
-    `FaultInjector` arms those rules.
+    runs, their checkpoint writes and the scheduler's engine builds: None
+    reads the ambient ``REPRO_GA_FAULTS`` rules, False disarms, a rule
+    string or a `FaultInjector` arms those rules.
+
+`add_cli_args` and `from_args` are the one flags-to-options parser of the
+CLIs (``python -m repro_torch.launch.ga_serve``).
 
 The launch options only choose launch shapes, never results: every plan
 is bit-identical in state and best tracking.
@@ -34,6 +41,7 @@ import torch
 
 # the JAX package's modes less "resident-sharded", which needs a mesh
 PLAN_MODES = ("gridded", "resident", "resident-free", "streamed")
+SEL_LANES = ("onehot", "gather", "auto")
 
 
 def plan_mode(plan_override: Any) -> Optional[str]:
@@ -49,6 +57,7 @@ class EngineOptions:
     device: str = "cuda"
     plan_override: Any = None
     stream_tile_islands: Optional[int] = None
+    sel_lane: Optional[str] = None
     faults: Any = None
 
     def __post_init__(self):
@@ -61,6 +70,9 @@ class EngineOptions:
             raise ValueError(
                 f"plan_override must be one of {PLAN_MODES} (or a dict with "
                 f"such a 'mode'), got {self.plan_override!r}")
+        if self.sel_lane is not None and self.sel_lane not in SEL_LANES:
+            raise ValueError(f"sel_lane must be one of {SEL_LANES}, "
+                             f"got {self.sel_lane!r}")
         tile = self.stream_tile_islands
         if tile is not None and int(tile) < 1:
             raise ValueError(f"stream_tile_islands must be >= 1, got {tile!r}")
@@ -74,6 +86,49 @@ class EngineOptions:
                 "and torch.cuda.is_available() is False; pass "
                 "EngineOptions(device='cpu') to run on the CPU")
         return dev
+
+    # ---- one flags->options parser shared by the CLIs -------------------
+
+    @staticmethod
+    def add_cli_args(ap) -> None:
+        """Attach the shared engine-option flags to an ArgumentParser."""
+        ap = ap.add_argument_group(
+            "engine options",
+            "The JAX package's --cost-table waits for the port's autotune "
+            "tables (ROADMAP item 12) and --fitness-workers for its eager "
+            "backend (item 14); --vmem-budget has no Hopper counterpart "
+            "(a card's limits are its own).")
+        ap.add_argument("--device", default="cuda",
+                        help="torch device the jobs run on: 'cuda' (the "
+                             "default; raises without a card) or 'cpu'")
+        ap.add_argument("--plan-override", default=None, choices=PLAN_MODES,
+                        help="force an island-ring epoch mode instead of "
+                             "the planner's choice (errors if infeasible)")
+        ap.add_argument("--stream-tile-islands", type=int, default=None,
+                        metavar="T",
+                        help="pin the streamed mode's island tile size")
+        ap.add_argument("--sel-lane", default=None, choices=SEL_LANES,
+                        help="tournament gather lane: 'onehot' (N <= "
+                             "1024), 'gather' (no cap) or 'auto' "
+                             "(default: the spec's setting)")
+        ap.add_argument("--faults", default=None, metavar="RULES",
+                        help="arm deterministic fault injection "
+                             "(repro_torch.faults rule grammar, e.g. "
+                             "'chunk_crash:at=2'; 'off' disarms even the "
+                             "REPRO_GA_FAULTS env; default: env-armed)")
+
+    @classmethod
+    def from_args(cls, args) -> "EngineOptions":
+        """Build options from parsed CLI args."""
+        flt = getattr(args, "faults", None)
+        if isinstance(flt, str) and flt.lower() in ("off", "none", "0"):
+            flt = False
+        return cls(device=getattr(args, "device", "cuda"),
+                   plan_override=getattr(args, "plan_override", None),
+                   stream_tile_islands=getattr(args, "stream_tile_islands",
+                                               None),
+                   sel_lane=getattr(args, "sel_lane", None),
+                   faults=flt)
 
 
 def resolve_options(options: Optional[EngineOptions] = None

@@ -212,13 +212,15 @@ def ga_generation_plain(x, sel, cross, mut, *, cfg: GAConfig,
     return out + ((by, bx) if track_best else ())
 
 
-@functools.lru_cache(maxsize=None)
 def kernel_library():
-    """The built ``ga_step`` library with its C signatures declared."""
-    import ctypes
-
+    """The built ``ga_step`` library with its C signatures declared, built
+    and bound once per process (`build.library`)."""
     from repro_torch.kernels import build
-    lib = build.load("ga_step")
+    return build.library("ga_step", _declare)
+
+
+def _declare(lib) -> None:
+    import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ga_step_launch.argtypes = [p] * 13 + [i] * 12 + [p]
     lib.ga_step_launch.restype = i
@@ -242,7 +244,6 @@ def kernel_library():
         fn.restype = i
     lib.ga_step_error_string.argtypes = [i]
     lib.ga_step_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,

@@ -10,7 +10,6 @@ the JAX package's `lfsr_advance_kernel`, it is a standalone bulk kernel.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict
 
 import torch
@@ -26,13 +25,15 @@ def lfsr_advance_plain(state: torch.Tensor, steps: int) -> torch.Tensor:
     return lfsr.steps(state, steps)
 
 
-@functools.lru_cache(maxsize=None)
 def kernel_library():
-    """The built ``lfsr_advance`` library with its C signatures declared."""
-    import ctypes
-
+    """The built ``lfsr_advance`` library with its C signatures declared,
+    built and bound once per process (`build.library`)."""
     from repro_torch.kernels import build
-    lib = build.load("lfsr_advance")
+    return build.library("lfsr_advance", _declare)
+
+
+def _declare(lib) -> None:
+    import ctypes
     p = ctypes.c_void_p
     lib.lfsr_advance_launch.argtypes = [p, p, ctypes.c_longlong,
                                         ctypes.c_int, p]
@@ -41,7 +42,6 @@ def kernel_library():
     lib.lfsr_advance_attrs.restype = ctypes.c_int
     lib.lfsr_advance_error_string.argtypes = [ctypes.c_int]
     lib.lfsr_advance_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def kernel_attrs() -> Dict[str, int]:

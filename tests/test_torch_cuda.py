@@ -550,3 +550,45 @@ def test_repack_on_card_matches_solo(cuda_device, tmp_path):
         solo = ga.solve(spec, backend="fused")
         assert jt["best_fitness"] == solo.best_fitness
         np.testing.assert_array_equal(jt["best_params"], solo.best_params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kw", PACK_CASES)
+def test_scheduler_on_card_matches_solo(cuda_device, tmp_path, backend, kw):
+    """The scheduler packs the jobs into one launch on the card, a crash
+    of one chunk retries the pack from its checkpoint, and every job ends
+    equal to its solo run."""
+    from repro_torch import faults as FLT
+    from repro_torch.serve.engine import GAMetricsRegistry
+    from repro_torch.serve.scheduler import GAScheduler
+    inj = FLT.FaultInjector()
+    sched = GAScheduler(registry=GAMetricsRegistry(), backend=backend,
+                        chunk_generations=8, ckpt_root=str(tmp_path),
+                        paused=True, options=ga.EngineOptions(faults=inj))
+    try:
+        specs = _pack_specs(kw)
+        ids = [sched.submit(s) for s in specs]
+        inj.add_rule(f"chunk_crash@{ids[0]}:at=2")
+        sched.resume_dispatch()
+        for jid, spec in zip(ids, specs):
+            res = sched.result(jid, timeout=300)
+            solo = ga.solve(spec, backend=backend)
+            assert res["pack_size"] == len(specs)
+            assert res["best_fitness"] == solo.best_fitness
+            np.testing.assert_array_equal(res["best_params"],
+                                          solo.best_params)
+        stats = sched.stats()
+        assert stats["retries"] == len(specs)
+        assert stats["packs_launched"] == 2
+    finally:
+        sched.shutdown()
+
+
+@pytest.mark.cuda
+def test_scheduler_for_the_card_runs_on_it(cuda_device, tmp_path):
+    from repro_torch.serve.scheduler import GAScheduler
+    sched = GAScheduler(ckpt_root=str(tmp_path), paused=True)
+    try:
+        assert sched.device.type == "cuda"
+    finally:
+        sched.shutdown()
