@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,33 @@ class GAState(NamedTuple):
 
 
 FitnessFn = Callable[[torch.Tensor], torch.Tensor]  # int32[..., N, V] -> [..., N]
+
+
+# ---------------------------------------------------------------------------
+# Fitness builders — thin wrappers over core.fitness.FitnessProgram
+# ---------------------------------------------------------------------------
+
+
+def make_lut_fitness(tables: F.LutTables) -> FitnessFn:
+    """Faithful ROM-pipeline fitness over the whole chromosome matrix."""
+    return lambda x: F.lut_fitness(x, tables)
+
+
+def make_blackbox_fitness(fn: Callable[[torch.Tensor], torch.Tensor], c: int,
+                          bounds) -> FitnessFn:
+    """General V-variable fitness: decode each c-bit gene to its bound range
+    and hand the (N, V) float32 tensor to `fn`."""
+    prog = F.compile_program(fitness=fn, bounds=bounds, bits_per_var=c)
+    return prog.stage
+
+
+def fitness_for_problem(problem, cfg: GAConfig) -> FitnessFn:
+    """Fitness for a registry problem (name or ProblemDef) at cfg's V, c and
+    mode."""
+    name = problem.name if isinstance(problem, F.ProblemDef) else problem
+    prog = F.compile_program(problem=name, n_vars=cfg.v, bits_per_var=cfg.c,
+                             mode=cfg.mode, minimize=cfg.minimize)
+    return prog.fitness(cfg.mode)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +290,47 @@ def generation_with_y(state: GAState, y: torch.Tensor,
     z, cross_lfsr = _crossover(w, state.cross_lfsr, cfg)
     x_new, mut_lfsr = _mutate(z, state.mut_lfsr, cfg)
     return GAState(x_new, sel_lfsr, cross_lfsr, mut_lfsr, state.k + 1)
+
+
+def host_fitness(y) -> np.ndarray:
+    """Fitness values as a float32 numpy array on the host: the one crossing
+    a generation of the eager loop makes (a tensor on any device, or what a
+    host-side fitness returned)."""
+    if isinstance(y, torch.Tensor):
+        y = y.detach().cpu().numpy()
+    return np.asarray(y, np.float32)
+
+
+def run_eager(cfg: GAConfig, fit: FitnessFn, k_generations: int,
+              state: Optional[GAState] = None, apply_ops_fn=None, *,
+              device="cpu") -> GARun:
+    """Host-loop driver for fitness evaluated outside the operator step
+    (a simulator, a training trial): each generation `fit(state.x)` crosses
+    to the host as float32, the best and mean are taken there with numpy,
+    and the operators run as the plain tensor step on the state's device.
+    `apply_ops_fn(state, y, cfg) -> state` swaps the SM/CM/MM pipeline
+    (defaults to `generation_with_y`); `device` places a fresh state when
+    none is given."""
+    if state is None:
+        state = init_state(cfg, device=device)
+    step = apply_ops_fn or generation_with_y
+    dev = state.x.device
+    sign = 1.0 if cfg.minimize else -1.0
+    best_y = np.inf
+    best_x = torch.zeros((cfg.v,), dtype=torch.int32, device=dev)
+    tb, tm = [], []
+    for _ in range(k_generations):
+        y = host_fitness(fit(state.x))
+        idx = int(np.argmin(sign * y))
+        if sign * y[idx] < sign * best_y or not np.isfinite(best_y):
+            best_y = float(y[idx])
+            best_x = state.x[idx]
+        tb.append(float(y[idx]))
+        tm.append(float(y.mean()))
+        state = step(state, torch.from_numpy(y).to(dev), cfg)
+    return GARun(state, torch.tensor(best_y, dtype=torch.float32), best_x,
+                 torch.tensor(tb, dtype=torch.float32),
+                 torch.tensor(tm, dtype=torch.float32))
 
 
 def decode_best(run_out: GARun, cfg: GAConfig, domain) -> np.ndarray:

@@ -25,6 +25,10 @@
                                                the splice between
                                                (streamed); bit-identical to
                                                islands
+    eager          host loop         single    fitness evaluated outside
+                                               the step (`jit_fitness=
+                                               False`); the operators are
+                                               the plain tensor step
     =============  ================  ========  ===========================
 
 Non-paper operators (selection ``tournament4``, ``roulette``, ``rank``,
@@ -36,6 +40,10 @@ the JAX package's format), packed (`PackedEngine`: many jobs as the
 replica slots of one run, each bit-identical to its solo run) and repacked
 (`repack_checkpoint`); what an engine builds for a spec shape is shared
 through `RUNNER_CACHE`.
+
+The island planner's measured tier reads a cost table
+(`EngineOptions(cost_table=...)`, `repro_torch.autotune`), and
+`repro_torch.core.evolve` is the blackbox-tuning entry on top of `solve`.
 
 Runs go to the card unless `EngineOptions(device="cpu")` asks for the CPU.
 """

@@ -34,6 +34,10 @@ The registry exposes the compositions under the JAX package's names:
   islands        = reference × island_ring
   fused-islands  = fused     × island_ring
 
+and, outside the composition, `eager`: a host loop for fitness evaluated
+outside the operator step (`jit_fitness=False`), the operators the plain
+tensor step on the engine's device.
+
 Each backend implements `supports(spec)` (capability check → reason string
 or None), `init()` (backend-native state), `init_packed(seeds)` (one
 replica slot per seed, for job packing) and `segment(state, gens)`
@@ -47,6 +51,7 @@ builds none of it again.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, Optional
@@ -54,6 +59,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import autotune as _cost
 from repro_torch import convert
 from repro_torch.core import ga as G
 from repro_torch.core import islands as ISL
@@ -122,7 +128,10 @@ def _check_seeds(seeds, n_repeats: int) -> None:
 class Backend:
     """One execution strategy for a GASpec, on the device of its
     `ga.EngineOptions` (which raises when that is CUDA and no card is
-    there)."""
+    there).  The options' cost table is resolved once here
+    (`repro_torch.autotune.resolve_table`: None discovers the ambient
+    per-host table, False pins the pure heuristic) and feeds the measured
+    tier of the island-ring epoch planner."""
 
     name = "?"
 
@@ -136,6 +145,7 @@ class Backend:
         self.spec = spec
         self.cfg = spec.ga_config()
         self.device = self.options.torch_device()
+        self.cost_table = _cost.resolve_table(self.options.cost_table)
 
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
@@ -149,8 +159,11 @@ class Backend:
         """Stacked state with one replica SLOT per seed — the layout job
         packing (`repro_torch.ga.engine.PackedEngine`) runs many tenants
         through: slot i is bit-identical to a solo run seeded
-        `seeds[i]`."""
-        raise NotImplementedError
+        `seeds[i]`.  Backends whose replica axis is a host loop (eager)
+        cannot pack."""
+        raise NotImplementedError(
+            f"backend {self.name!r} does not support packed (multi-job) "
+            "state initialization")
 
     def segment(self, state, gens: int) -> Segment:
         raise NotImplementedError
@@ -206,8 +219,8 @@ class ReferenceExecutor(Executor):
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
         if not spec.jit_fitness:
-            return ("fitness needs the host-loop 'eager' backend "
-                    "(jit_fitness=False), which the port does not have yet")
+            return ("fitness is evaluated outside the operator step "
+                    "(jit_fitness=False); use 'eager'")
         return None
 
     def solo(self, gens: int):
@@ -237,8 +250,8 @@ class FusedExecutor(Executor):
     @staticmethod
     def supports(spec: GASpec) -> Optional[str]:
         if not spec.jit_fitness:
-            return ("fitness needs the host-loop 'eager' backend "
-                    "(jit_fitness=False), which the port does not have yet")
+            return ("fitness is evaluated outside the operator step "
+                    "(jit_fitness=False); use 'eager'")
         if spec.mode != "arith":
             return ("the CUDA kernel requires mode='arith' — LUT gathers "
                     "stay on the plain path ('reference')")
@@ -302,13 +315,16 @@ class Topology:
     name = "?"
 
     def __init__(self, spec: GASpec, executor: Executor, *, device,
-                 plan_override=None, stream_tile_islands=None):
+                 cost_table=None, plan_override=None,
+                 stream_tile_islands=None):
         self.spec = spec
         self.cfg = spec.ga_config()
         self.executor = executor
         self.device = device
-        # a forced epoch mode and a pinned streamed tile; only the
-        # island_ring planner reads them — single has one launch shape
+        # a measured cost table, a forced epoch mode and a pinned streamed
+        # tile; only the island_ring planner reads them — single has one
+        # launch shape
+        self.cost_table = cost_table
         self.plan_override = plan_override
         self.stream_tile_islands = stream_tile_islands
         self._cache: Dict[Any, Any] = {}   # instance memo over RUNNER_CACHE
@@ -418,18 +434,26 @@ class IslandRingTopology(Topology):
                      global memory; its island tile comes from how many
                      blocks the card holds at once.
 
-    candidates[0] is the heuristic (`plan_source: "heuristic"`); a
-    `plan_override` picks another feasible mode (`"forced"`) or raises.
-    Every plan is bit-identical in state and best tracking; plans that fold
-    several intervals a launch coarsen the trajectory to one sample a
-    launch."""
+    Selection is two-tier, as in the JAX package.  candidates[0] is the
+    heuristic (`plan_source: "heuristic"`).  When a measured cost table
+    covers the heuristic's own point, the planner instead takes the
+    candidate with the best measured gens/s (`"measured"`, the expected
+    rate in plan["plan_gens_per_s"]); for `sel_lane="auto"` the other
+    lane's candidates join that argmax as measured-only ones, and a pick
+    on the other lane rebuilds the spec, configs and executor the runners
+    close over.  No table, or one that misses the heuristic's point, keeps
+    the heuristic.  A `plan_override` skips the table: it picks another
+    feasible mode (`"forced"`) or raises.  Every plan is bit-identical in
+    state and best tracking; plans that fold several intervals a launch
+    coarsen the trajectory to one sample a launch."""
 
     name = "island_ring"
 
     def __init__(self, spec: GASpec, executor: Executor, *, device,
-                 plan_override=None, stream_tile_islands=None):
+                 cost_table=None, plan_override=None,
+                 stream_tile_islands=None):
         super().__init__(spec, executor, device=device,
-                         plan_override=plan_override,
+                         cost_table=cost_table, plan_override=plan_override,
                          stream_tile_islands=stream_tile_islands)
         self.icfg = ISL.IslandConfig(ga=self.cfg, n_islands=spec.n_islands,
                                      migrate_every=spec.migrate_every)
@@ -437,17 +461,75 @@ class IslandRingTopology(Topology):
         # reads is cached in kernels.ga_step) and it follows the planner's
         # inputs wherever they change
         self.plan = self._epoch_plan()
+        lane = self.plan.get("lane", self.cfg.sel_lane)
+        if lane != self.cfg.sel_lane:
+            # a measured cross-lane pick: pin the lane in the spec (so the
+            # runner-cache keys name it) and give this topology its own
+            # executor copy, never the shared cached one
+            self.spec = dataclasses.replace(self.spec, sel_lane=lane)
+            self.cfg = self.spec.ga_config()
+            self.icfg = dataclasses.replace(self.icfg, ga=self.cfg)
+            self.executor = copy.copy(self.executor)
+            self.executor.spec, self.executor.cfg = self.spec, self.cfg
 
-    def _epoch_plan(self) -> Dict[str, Any]:
+    def epoch_candidates(self) -> list:
+        """Tier-1 feasible plan candidates, heuristic first (the autotune
+        runner measures exactly this list, so table points and planner
+        queries cannot drift apart).  All carry the spec's own resolved
+        selection lane; the other lane's are a measured-only grid
+        (`_lane_candidates`)."""
+        return self._lane_candidates(self.cfg.sel_lane)
+
+    def _lane_candidates(self, lane: str) -> list:
+        """Feasible candidates with the selection lane forced to `lane`."""
         spec = self.spec
-        cands = K.epoch_mode_candidates(
-            self.cfg, spec.n_islands, executor=self.executor.name,
+        cfg = (self.cfg if lane == self.cfg.sel_lane
+               else dataclasses.replace(self.cfg, sel_lane=lane))
+        return K.epoch_mode_candidates(
+            cfg, spec.n_islands, executor=self.executor.name,
             migration=spec.migration, gens_per_epoch=spec.gens_per_epoch,
             migrate_every=spec.migrate_every, groups=spec.n_repeats,
             device=self.device)
+
+    def _plan_point(self, cand: Dict[str, Any]) -> Dict[str, Any]:
+        return CC.plan_point(self.spec, executor=self.executor.name,
+                             mode=cand["mode"], n_shards=1,
+                             lane=cand.get("lane"))
+
+    def _measured(self, cands: list) -> Optional[Dict[str, Any]]:
+        """Tier 2: the candidate with the best measured gens/s, or None
+        when no table covers the heuristic's own point (an uncovered spec
+        keeps the heuristic, and a covered one's pick is provably no
+        slower than it measured)."""
+        table = self.cost_table
+        if table is None:
+            return None
+        rated = [(c, table.lookup(self._plan_point(c), c["gens_per_launch"]))
+                 for c in cands]
+        # sel_lane="auto": the heuristic never switches lane on its own,
+        # measurement does
+        if self.spec.sel_lane == "auto":
+            twin = "gather" if self.cfg.sel_lane == "onehot" else "onehot"
+            if twin != "onehot" or self.spec.n <= G.ONEHOT_MAX_N:
+                rated += [(c, table.lookup(self._plan_point(c),
+                                           c["gens_per_launch"]))
+                          for c in self._lane_candidates(twin)]
+        if len(rated) < 2 or rated[0][1] is None:
+            return None
+        best_c, best_v = rated[0]
+        for c, v in rated[1:]:
+            if v is not None and v > best_v:
+                best_c, best_v = c, v
+        return dict(best_c, plan_source="measured",
+                    plan_gens_per_s=round(best_v, 3))
+
+    def _epoch_plan(self) -> Dict[str, Any]:
+        spec = self.spec
+        cands = self.epoch_candidates()
         want = plan_mode(self.plan_override)
         if want is None:
-            plan = dict(cands[0], plan_source="heuristic")
+            plan = (self._measured(cands)
+                    or dict(cands[0], plan_source="heuristic"))
         else:
             plan = next((dict(c, plan_source="forced") for c in cands
                          if c["mode"] == want), None)
@@ -681,8 +763,11 @@ class ComposedBackend(Backend):
             lambda: self.executor_cls(self.spec))
         self.topology: Topology = self.topology_cls(
             self.spec, self.executor, device=self.device,
+            cost_table=self.cost_table,
             plan_override=self.options.plan_override,
             stream_tile_islands=self.options.stream_tile_islands)
+        # a measured cross-lane plan runs the topology's own executor copy
+        self.executor = self.topology.executor
 
     @classmethod
     def supports(cls, spec: GASpec) -> Optional[str]:
@@ -718,9 +803,95 @@ IslandsBackend = _compose("islands", ReferenceExecutor, IslandRingTopology)
 FusedIslandsBackend = _compose("fused-islands", FusedExecutor,
                                IslandRingTopology)
 
+
+
+# ---------------------------------------------------------------------------
+# eager — a host generation loop for fitness evaluated outside the step
+# ---------------------------------------------------------------------------
+
+
+def _pooled_fitness(fit, workers: int):
+    """Population-parallel host fitness: split the (N, V) batch into
+    `workers` contiguous row chunks and evaluate them on a bounded thread
+    pool.  Chunks come back in submission order and are concatenated, so
+    the result is bitwise identical to the serial batch call — the pool
+    only overlaps the (GIL-releasing or I/O-bound) fitness work.  The pool
+    lives for one call."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def pooled(x):
+        n = x.shape[0]
+        chunk = max(1, -(-n // workers))
+        parts = [x[i:i + chunk] for i in range(0, n, chunk)]
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            outs = list(pool.map(lambda p: G.host_fitness(fit(p)), parts))
+        return np.concatenate(outs, axis=0)
+
+    return pooled
+
+
+class EagerBackend(Backend):
+    """`core.ga.run_eager` a replica: each generation the fitness crosses
+    to the host, and the operators run as the plain tensor step on the
+    engine's device.  `n_repeats` replicas run one after another."""
+
+    name = "eager"
+
+    def __init__(self, spec: GASpec, *, options=None):
+        super().__init__(spec, options=options)
+        spec = self.spec
+        self.fit = spec.fitness_fn()
+        if self.options.fitness_workers > 1:
+            self.fit = _pooled_fitness(self.fit,
+                                       self.options.fitness_workers)
+        self.apply_ops = OPS.make_apply_ops(spec.selection, spec.crossover,
+                                            spec.mutation)
+
+    @staticmethod
+    def supports(spec: GASpec) -> Optional[str]:
+        if spec.effective_topology != "single":
+            return "eager driver has no migration; use an island_ring backend"
+        return None
+
+    def init(self):
+        if self.spec.n_repeats == 1:
+            return G.init_state(self.cfg, device=self.device)
+        return _stack_states(self.cfg, self.spec.n_repeats, self.device)
+
+    def _run(self, state, gens: int) -> G.GARun:
+        return G.run_eager(self.cfg, self.fit, gens, state,
+                           apply_ops_fn=self.apply_ops)
+
+    def segment(self, state, gens: int) -> Segment:
+        R = self.spec.n_repeats
+        mini = self.spec.minimize
+        if R == 1:
+            out = self._run(state, gens)
+            return Segment(state=out.state, best_y=float(out.best_y),
+                           best_x=convert.words_to_numpy(out.best_x),
+                           traj_best=out.traj_best.numpy(),
+                           traj_mean=out.traj_mean.numpy(), gens=gens)
+        outs = [self._run(G.GAState(*(t[r] for t in state)), gens)
+                for r in range(R)]
+        per_rep = np.array([float(o.best_y) for o in outs])
+        i = _arg_best(per_rep, mini)
+        tb = np.stack([o.traj_best.numpy() for o in outs])
+        reduce = np.min if mini else np.max
+        return Segment(state=G.stack_states([o.state for o in outs]),
+                       best_y=float(per_rep[i]),
+                       best_x=convert.words_to_numpy(outs[i].best_x),
+                       traj_best=reduce(tb, axis=0),
+                       traj_mean=np.stack([o.traj_mean.numpy()
+                                           for o in outs]).mean(axis=0),
+                       gens=gens,
+                       telemetry=RT.RunTelemetry(
+                           per_repeat=RT.ReplicaStats(best=per_rep)))
+
+
 BACKENDS: Dict[str, type] = {
     ReferenceBackend.name: ReferenceBackend,
     FusedBackend.name: FusedBackend,
     IslandsBackend.name: IslandsBackend,
     FusedIslandsBackend.name: FusedIslandsBackend,
+    EagerBackend.name: EagerBackend,
 }

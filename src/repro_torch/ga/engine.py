@@ -10,11 +10,13 @@
 Runs live on the card (``EngineOptions(device="cuda")``, the default)
 unless the options ask for the CPU; without a card an engine refuses to
 build instead of carrying on on the CPU.  Backend selection
-(`backend="auto"`) walks the capability matrix: for an island spec
-fused-islands on CUDA, then islands; for one population fused on CUDA,
-then reference — the kernels first where they run.  Pinning a backend that
-cannot run the spec warns and falls back to the next capable one — a
-decision about what the spec needs, never about the device or a kernel.
+(`backend="auto"`) walks the capability matrix: eager when the fitness is
+evaluated outside the operator step (`jit_fitness=False`); for an island
+spec fused-islands on CUDA, then islands; for one population fused on
+CUDA, then reference — the kernels first where they run.  Pinning a
+backend that cannot run the spec warns and falls back to the next capable
+one — a decision about what the spec needs, never about the device or a
+kernel.
 
 Streaming + checkpointing:
 
@@ -58,6 +60,8 @@ def capability_matrix(spec: GASpec) -> Dict[str, Optional[str]]:
 
 
 def _auto_order(spec: GASpec, device: torch.device):
+    if not spec.jit_fitness:
+        return ["eager"]
     cuda = device.type == "cuda"
     order = []
     if spec.effective_topology == "island_ring":
@@ -66,7 +70,7 @@ def _auto_order(spec: GASpec, device: torch.device):
         order.append("islands")
     if cuda:
         order.append("fused")
-    order += ["reference", "islands"]
+    order += ["reference", "islands", "eager"]
     return order
 
 

@@ -8,6 +8,10 @@ Knobs:
     the port runs on the card unless the caller asks for the CPU.  When
     CUDA is unavailable and the CPU was not asked for, building an engine
     raises instead of carrying on on the CPU.
+  * cost_table — the measured tier of the island-ring epoch planner
+    (`repro_torch.autotune.resolve_table`): None discovers the ambient
+    per-host table, False disables measured planning (the pure
+    heuristic), a path or a `CostTable` pins one.
   * plan_override — force an island-ring epoch mode ("gridded",
     "resident", "resident-free", "streamed"; a dict with a "mode" key is
     read the same way); a mode the spec cannot run raises with the
@@ -20,13 +24,18 @@ Knobs:
     "gather" | "auto"); None keeps the spec's own setting.  The backend
     rebuilds the spec with the override, so it is validated (the onehot
     N cap) and keyed like a spec-level pin.
+  * fitness_workers — eager backend only: size of the bounded thread pool
+    that evaluates host-side fitness population-parallel (1 = the serial
+    batch call; chunks come back in order, so any worker count is
+    bit-identical).
   * faults — arm the `repro_torch.faults` injection sites of the chunked
     runs, their checkpoint writes and the scheduler's engine builds: None
     reads the ambient ``REPRO_GA_FAULTS`` rules, False disarms, a rule
     string or a `FaultInjector` arms those rules.
 
 `add_cli_args` and `from_args` are the one flags-to-options parser of the
-CLIs (``python -m repro_torch.launch.ga_serve``).
+CLIs (``python -m repro_torch.launch.ga_serve``, ``ga_run``,
+``ga_autotune``).
 
 The launch options only choose launch shapes, never results: every plan
 is bit-identical in state and best tracking.
@@ -55,9 +64,11 @@ def plan_mode(plan_override: Any) -> Optional[str]:
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     device: str = "cuda"
+    cost_table: Any = None
     plan_override: Any = None
     stream_tile_islands: Optional[int] = None
     sel_lane: Optional[str] = None
+    fitness_workers: int = 1
     faults: Any = None
 
     def __post_init__(self):
@@ -76,6 +87,9 @@ class EngineOptions:
         tile = self.stream_tile_islands
         if tile is not None and int(tile) < 1:
             raise ValueError(f"stream_tile_islands must be >= 1, got {tile!r}")
+        if int(self.fitness_workers) < 1:
+            raise ValueError(f"fitness_workers must be >= 1, "
+                             f"got {self.fitness_workers!r}")
 
     def torch_device(self) -> torch.device:
         """The run's device; raises when it is CUDA and no card is there."""
@@ -94,13 +108,15 @@ class EngineOptions:
         """Attach the shared engine-option flags to an ArgumentParser."""
         ap = ap.add_argument_group(
             "engine options",
-            "The JAX package's --cost-table waits for the port's autotune "
-            "tables (ROADMAP item 12) and --fitness-workers for its eager "
-            "backend (item 14); --vmem-budget has no Hopper counterpart "
-            "(a card's limits are its own).")
+            "The JAX package's --vmem-budget has no Hopper counterpart (a "
+            "card's limits are its own).")
         ap.add_argument("--device", default="cuda",
                         help="torch device the jobs run on: 'cuda' (the "
                              "default; raises without a card) or 'cpu'")
+        ap.add_argument("--cost-table", default=None, metavar="PATH",
+                        help="autotune cost table for measured epoch plans "
+                             "(default: ambient per-host table; 'off' "
+                             "disables measured planning)")
         ap.add_argument("--plan-override", default=None, choices=PLAN_MODES,
                         help="force an island-ring epoch mode instead of "
                              "the planner's choice (errors if infeasible)")
@@ -111,6 +127,11 @@ class EngineOptions:
                         help="tournament gather lane: 'onehot' (N <= "
                              "1024), 'gather' (no cap) or 'auto' "
                              "(default: the spec's setting)")
+        ap.add_argument("--fitness-workers", type=int, default=1,
+                        metavar="W",
+                        help="eager backend: thread-pool width for "
+                             "host-side fitness dispatch (1 = serial batch "
+                             "call)")
         ap.add_argument("--faults", default=None, metavar="RULES",
                         help="arm deterministic fault injection "
                              "(repro_torch.faults rule grammar, e.g. "
@@ -120,14 +141,18 @@ class EngineOptions:
     @classmethod
     def from_args(cls, args) -> "EngineOptions":
         """Build options from parsed CLI args."""
+        ct = getattr(args, "cost_table", None)
+        if isinstance(ct, str) and ct.lower() in ("off", "none", "0"):
+            ct = False
         flt = getattr(args, "faults", None)
         if isinstance(flt, str) and flt.lower() in ("off", "none", "0"):
             flt = False
-        return cls(device=getattr(args, "device", "cuda"),
+        return cls(device=getattr(args, "device", "cuda"), cost_table=ct,
                    plan_override=getattr(args, "plan_override", None),
                    stream_tile_islands=getattr(args, "stream_tile_islands",
                                                None),
                    sel_lane=getattr(args, "sel_lane", None),
+                   fitness_workers=getattr(args, "fitness_workers", 1),
                    faults=flt)
 
 

@@ -13,8 +13,7 @@
 The fields are the JAX package's that the port's topologies fill, under
 the same names, so a consumer reads both packages the same way; the one
 byte field is `smem_estimate_bytes` where the JAX package has its VMEM
-estimate.  Shard counters and measured plan rates come with the mesh and
-autotune slices that fill them.
+estimate.  Shard counters come with the mesh slice that fills them.
 """
 
 from __future__ import annotations
@@ -30,12 +29,14 @@ class PlanInfo:
     """The epoch-plan decision a segment ran under.
 
     mode: "gridded" | "resident" | "resident-free" | "streamed" | "-" (no
-    plan: single topology).  source: "heuristic" | "forced" | "-".
+    plan: single topology).  source: "heuristic" | "measured" | "forced" |
+    "-".
     fallback carries the Hopper limit that refused the resident shape (set
     for the gridded fallback and for the streamed lane, which exists
     because of that refusal).  tile_islands is the streamed mode's island
     tile; lane the selection lane the kernels ran; smem_estimate_bytes the
-    dynamic shared memory one thread block of the plan's kernel takes."""
+    dynamic shared memory one thread block of the plan's kernel takes;
+    gens_per_s the measured rate that justified a "measured" choice."""
 
     mode: str = "-"
     source: str = "-"
@@ -45,6 +46,7 @@ class PlanInfo:
     tile_islands: Optional[int] = None
     lane: str = "-"
     smem_estimate_bytes: Optional[int] = None
+    gens_per_s: Optional[float] = None
 
     @classmethod
     def from_plan(cls, plan: Dict[str, Any]) -> "PlanInfo":
@@ -56,7 +58,8 @@ class PlanInfo:
                    gens_per_launch=int(plan.get("gens_per_launch", 1)),
                    tile_islands=plan.get("tile_islands"),
                    lane=plan.get("lane", "-"),
-                   smem_estimate_bytes=plan.get("smem_estimate_bytes"))
+                   smem_estimate_bytes=plan.get("smem_estimate_bytes"),
+                   gens_per_s=plan.get("plan_gens_per_s"))
 
 
 @dataclasses.dataclass

@@ -31,9 +31,9 @@ preempts them) without needing a file.
 
 The port of the JAX package's `repro.launch.ga_serve`, with the same
 flags less `--mesh` (the port runs the island ring on one device) and
-the engine flags the port does not have yet (see
-`EngineOptions.add_cli_args`); `--device` picks the card (the default)
-or the CPU.
+`--vmem-budget` (see `EngineOptions.add_cli_args`); `--device` picks the
+card (the default) or the CPU, and `--cost-table` a measured table
+(`python -m repro_torch.launch.ga_autotune` writes one).
 """
 
 from __future__ import annotations
@@ -127,6 +127,8 @@ def main():
                         recover=args.recover,
                         options=options)
     print(f"device: {sched.device}")
+    if sched.cost_table is not None:
+        print(f"cost table: {len(sched.cost_table)} measured point(s)")
     if args.recover:
         print(f"recovered {sched.recovered_total} pending job(s) "
               "from the journal")

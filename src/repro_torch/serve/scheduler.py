@@ -37,6 +37,15 @@ loops and any state → FAILED on error.  Telemetry flows through a
 long-poll endpoints; `attach_scheduler_stats` adds queue-depth /
 jobs-running / cache-hit gauges to every /metrics scrape).
 
+Two trace-driven extensions ride on top:
+
+* **Cost-table ordering** — when a `cost_table` (see
+  `repro_torch.autotune`) is attached, every submission gets a measured
+  gens/s estimate for its planned launch shape; within a priority level
+  the dispatcher runs shortest-estimated-wall first.  The table also
+  flows into every `PackedEngine` so each launch uses the measured epoch
+  plan.  With no table the ordering is bit-identical to plain
+  priority/FIFO.
 * **TTL GC** — `job_ttl_s` bounds how long DONE/FAILED jobs linger in the
   scheduler and registry; the worker sweeps them out between dispatches
   (`repro_ga_sched_evicted_total` counts evictions).
@@ -72,11 +81,9 @@ registry by `tests/test_torch_scheduler.py` and `chip_smoke.py`):
 
 The port of the JAX package's `repro.serve.scheduler`, every mechanism and
 counter kept, less what the port has no engine for yet: no `mesh=` (the
-ring lives on one device), and no autotune cost table (`cost_table`
-takes None or False; a table raises NotImplementedError, so dispatch is
-plain priority/FIFO and `plans_measured` stays 0).  The device comes from
-`options.device`: a scheduler for the card raises at construction on a
-host without one, rather than hand its worker an error it would retry.
+ring lives on one device).  The device comes from `options.device`: a
+scheduler for the card raises at construction on a host without one,
+rather than hand its worker an error it would retry.
 """
 
 from __future__ import annotations
@@ -133,6 +140,7 @@ class Job:
     quarantined: bool = False                # failed as the isolated poison
     submitted_at: float = 0.0                # clock() submission stamp
     recovered: bool = False                  # re-enqueued by journal replay
+    est_gens_per_s: Optional[float] = None   # cost-table throughput estimate
 
 
 @dataclasses.dataclass
@@ -169,10 +177,12 @@ class GAScheduler:
     granularity; `ckpt_root` is where pack checkpoints and the journal
     live (a temp dir by default); `job_ttl_s` evicts DONE/FAILED jobs that
     many seconds after they finish (None keeps them forever);
-    `cost_table` takes None or False only (the port has no autotune
-    tables yet).  Engine knobs arrive as one `ga.EngineOptions` via
-    `options=` — the device, and the plan, tile, lane and fault knobs of
-    every packed launch.
+    `cost_table` follows `repro_torch.autotune.resolve_table` — None
+    discovers the ambient table, False disables, a path or CostTable pins
+    one (it may also ride in `options.cost_table`, but not in both).
+    Engine knobs arrive as one `ga.EngineOptions` via `options=` — the
+    device, and the plan, tile, lane and fault knobs of every packed
+    launch.
     """
 
     def __init__(self, *, registry: Optional[GAMetricsRegistry] = None,
@@ -184,14 +194,17 @@ class GAScheduler:
                  max_retries: int = 3, retry_backoff_s: float = 0.05,
                  recover: bool = False, paused: bool = False,
                  clock=None):
+        from repro_torch.autotune import resolve_table   # import-light
         from repro_torch.ga.options import resolve_options
 
-        if cost_table is not None and cost_table is not False:
-            raise NotImplementedError(
-                "the port's GAScheduler takes no autotune cost table yet "
-                "(cost_table=None or False); measured plans come with the "
-                "autotune slice (ROADMAP Queue 1 item 12)")
         self.options = resolve_options(options)
+        if cost_table is not None:
+            if self.options.cost_table is not None:
+                raise ValueError(
+                    "got both cost_table= and options.cost_table: pass the "
+                    "table in one of them")
+            self.options = dataclasses.replace(self.options,
+                                               cost_table=cost_table)
         # once, here: a scheduler meant for the card fails now on a host
         # without one, not in its worker as a retried transient
         self.device = self.options.torch_device()
@@ -209,7 +222,8 @@ class GAScheduler:
         # resolved ONCE: the injector instance (occurrence counters included)
         # is shared with every engine build via EngineOptions.faults
         self.faults = FLT.resolve_faults(self.options.faults)
-        self.cost_table = None      # no measured plans yet (item 12)
+        # resolve once: every engine build + submit estimate reuses it
+        self.cost_table = resolve_table(self.options.cost_table)
         self._cv = threading.Condition()
         self._queue: List[_Unit] = []
         self._jobs: Dict[str, Job] = {}
@@ -221,7 +235,7 @@ class GAScheduler:
         self.preemptions = 0
         self.jobs_packed = 0        # jobs that shared a launch with >=1 other
         self.jobs_evicted = 0       # finished jobs TTL-swept from registry
-        self.plans_measured = 0     # launches planned from a cost table
+        self.plans_measured = 0     # launches planned from the cost table
         self.plans_heuristic = 0    # launches planned by the static heuristic
         self.retries_total = 0      # job retry dispatches after transients
         self.quarantined_total = 0  # poison jobs isolated + failed
@@ -258,6 +272,13 @@ class GAScheduler:
                   deadline_s=None if deadline_s is None else float(deadline_s),
                   max_retries=max_retries,
                   submitted_at=self._clock())
+        if self.cost_table is not None:
+            # a scheduling hint: None (never an error) for a spec the
+            # table does not cover or no engine can take
+            from repro_torch.autotune import estimate_gens_per_s
+            job.est_gens_per_s = estimate_gens_per_s(
+                spec, self.cost_table, backend=job.backend,
+                options=self.options)
         self.registry.queue_job(job_id, problem=spec.problem or "blackbox",
                                 gens_total=spec.generations, n_vars=spec.v,
                                 priority=job.priority, deadline_s=deadline_s)
@@ -357,7 +378,8 @@ class GAScheduler:
                 "jobs_evicted": self.jobs_evicted,
                 "plans_measured": self.plans_measured,
                 "plans_heuristic": self.plans_heuristic,
-                "plan_table_entries": 0,
+                "plan_table_entries": (len(self.cost_table)
+                                       if self.cost_table is not None else 0),
                 "retries": self.retries_total,
                 "quarantined": self.quarantined_total,
                 "recovered": self.recovered_total,
@@ -414,9 +436,15 @@ class GAScheduler:
         return (job.spec.compile_key(), job.spec.generations, job.backend)
 
     def _unit_order_key(self, u: _Unit):
-        """Dispatch order: priority first, then FIFO (the JAX package's
-        order without a cost table)."""
-        return (u.priority, -u.seq)
+        """Dispatch order: priority first, then (with a cost table) shortest
+        estimated wall, then FIFO.  Estimated units outrank unestimated ones
+        within a level; with no table every unit gets the same middle terms,
+        so the order is bit-identical to plain priority/FIFO."""
+        ests = [j.spec.generations / j.est_gens_per_s for j in u.jobs
+                if j.est_gens_per_s]
+        if not ests:
+            return (u.priority, 0, 0.0, -u.seq)
+        return (u.priority, 1, -min(ests), -u.seq)
 
     def _take_unit(self, ready: List[_Unit]) -> Optional[_Unit]:
         """Pop the best-priority READY unit; pack compatible fresh jobs onto
@@ -562,7 +590,7 @@ class GAScheduler:
         from a slice of the pack checkpoint (`ga.repack_checkpoint`)."""
         from repro_torch import ga
         specs = [j.spec for j in unit.jobs]
-        opts = dataclasses.replace(self.options,
+        opts = dataclasses.replace(self.options, cost_table=self.cost_table,
                                    faults=False)   # recovery ≠ injection site
         new_units = []
         for j in live:
@@ -717,7 +745,7 @@ class GAScheduler:
         pe = PackedEngine(
             [j.spec for j in jobs], jobs[0].backend,
             options=dataclasses.replace(
-                self.options,
+                self.options, cost_table=self.cost_table,
                 # share THIS injector instance (counters and all); False
                 # stops a disarmed engine re-resolving the ambient env
                 faults=self.faults if self.faults is not None else False))

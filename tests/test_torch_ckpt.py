@@ -24,6 +24,14 @@ from repro_torch import faults as FLT  # noqa: E402
 from repro_torch import ga  # noqa: E402
 from repro_torch.ckpt import checkpoint as CKPT  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 CPU = ga.EngineOptions(device="cpu")
 CROSS = [("reference", dict(n_repeats=2)),
          ("islands", dict(n_islands=4, migrate_every=5))]

@@ -29,6 +29,14 @@ from repro_torch.core import islands as TISL  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
 from repro_torch.kernels import lfsr_kernel as K4  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 Y_TOL = 1e-6
 EXACT = ("F1", "F2", "F3")
 
@@ -592,3 +600,60 @@ def test_scheduler_for_the_card_runs_on_it(cuda_device, tmp_path):
         assert sched.device.type == "cuda"
     finally:
         sched.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The autotune sweep and the eager backend on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,modes", [
+    (dict(n_islands=4), {"resident", "gridded"}),
+    (dict(n_islands=4, migration="none"), {"gridded", "resident-free"}),
+    (dict(n_islands=12, n_repeats=2), {"streamed", "gridded"})])
+def test_sweep_on_card_and_its_measured_plan(cuda_device, kw, modes):
+    """The sweep times every candidate on the card (both lanes), and an
+    engine planned from that table equals the heuristic one bit for bit."""
+    from repro_torch.autotune import sweep
+    spec = ga.GASpec(**dict(dict(problem="F3", n=64, bits_per_var=10,
+                                 mode="arith", mutation_rate=0.05, seed=3,
+                                 generations=16, migrate_every=4,
+                                 gens_per_epoch=8), **kw))
+    before = dict(K.LAUNCHES)
+    table = sweep([spec], backend="fused-islands", min_reps=2, max_reps=3)
+    assert {e["mode"] for e in table.entries()} == modes
+    assert {e["lane"] for e in table.entries()} == {"onehot", "gather"}
+    assert all(e["gens_per_s"] > 0 for e in table.entries())
+    assert table.host["platform"] == "cuda"
+    assert K.LAUNCHES["ga_generation"] > before["ga_generation"]
+    meas = ga.solve(spec, backend="fused-islands",
+                    options=ga.EngineOptions(cost_table=table))
+    heur = ga.solve(spec, backend="fused-islands",
+                    options=ga.EngineOptions(cost_table=False))
+    assert meas.telemetry.plan.source == "measured"
+    assert meas.telemetry.plan.gens_per_s > 0
+    _assert_same_solve(meas, heur, traj=(meas.telemetry.plan.gens_per_launch
+                                         == heur.telemetry.plan
+                                         .gens_per_launch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("n_repeats", [1, 3])
+def test_eager_on_card_equals_reference_on_card(cuda_device, n_repeats,
+                                                workers):
+    """Eager keeps the state on the card and crosses only y to the host:
+    state, best and the trajectory of bests equal `reference` on the card;
+    the means within 1e-6 * max(|mean|, |best|) (numpy's sum against
+    PyTorch's)."""
+    spec = ga.GASpec(problem="rastrigin:8", n=256, bits_per_var=16,
+                     mode="arith", mutation_rate=0.02, seed=9,
+                     generations=24, n_repeats=n_repeats)
+    eager = ga.solve(spec, backend="eager",
+                     options=ga.EngineOptions(fitness_workers=workers))
+    ref = ga.solve(spec, backend="reference")
+    assert eager.state.x.device.type == "cuda"
+    _assert_same_solve(eager, ref)
+    scale = np.maximum(np.abs(ref.traj_mean), np.abs(ref.traj_best))
+    assert np.all(np.abs(eager.traj_mean - ref.traj_mean) <= 1e-6 * scale)

@@ -143,10 +143,12 @@ def test_gaspec_fields_match_jax_package():
 
 def test_capability_matrix_and_fallback():
     ok = ga.GASpec(**_kw())
-    # the island backends also take one population: a ring of one island
+    # the island backends also take one population: a ring of one island,
+    # and the eager host loop any single population
     assert ga.capability_matrix(ok) == {"reference": None, "fused": None,
                                         "islands": None,
-                                        "fused-islands": None}
+                                        "fused-islands": None,
+                                        "eager": None}
     assert ga.resolve_backend(ok, "auto", "cuda") == "fused"
     assert ga.resolve_backend(ok, "auto", "cpu") == "reference"
     cases = {

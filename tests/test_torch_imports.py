@@ -37,13 +37,21 @@ def test_port_files_found():
     names = {p.name for p in _port_files()}
     assert {"lfsr.py", "fitness.py", "ga.py", "engine.py",
             "ga_step.py"} <= names
-    # the serving stack and its launcher fall under the same walk
+    # the serving stack and its launcher fall under the same walk, and
     rel = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"src/repro_torch/serve/scheduler.py",
             "src/repro_torch/serve/journal.py",
             "src/repro_torch/serve/metrics_http.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/launch/ga_serve.py"} <= rel
+    # so do autotune, evolve and the run and sweep launchers
+    assert {"src/repro_torch/autotune/__init__.py",
+            "src/repro_torch/autotune/table.py",
+            "src/repro_torch/autotune/stability.py",
+            "src/repro_torch/autotune/runner.py",
+            "src/repro_torch/core/evolve.py",
+            "src/repro_torch/launch/ga_run.py",
+            "src/repro_torch/launch/ga_autotune.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -39,6 +39,14 @@ from repro_torch.core import ga as TG  # noqa: E402
 from repro_torch.core import islands as TISL  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 CPU = ga.EngineOptions(device="cpu")
 ALL_PROBLEMS = ["F1", "F2", "F3", "sphere:4", "rastrigin:6", "ackley:4",
                 "rosenbrock:5"]

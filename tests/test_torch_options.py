@@ -16,6 +16,13 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import ga  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 def _kw(**kw):
     base = dict(problem="F3", n=32, bits_per_var=8, mode="arith",
                 mutation_rate=0.05, seed=7, generations=16,
@@ -104,3 +111,26 @@ def test_cli_flags_build_the_options():
         ap.parse_args(["--faults", "off"])).faults is False
     with pytest.raises(SystemExit):
         ap.parse_args(["--plan-override", "resident-sharded"])
+
+
+def test_cost_table_and_fitness_workers_flags_as_in_jax():
+    ap = argparse.ArgumentParser()
+    ga.EngineOptions.add_cli_args(ap)
+    jap = argparse.ArgumentParser()
+    JGA.EngineOptions.add_cli_args(jap)
+    for argv, ct in ((["--cost-table", "t.json", "--fitness-workers", "4"],
+                      "t.json"), (["--cost-table", "off"], False), ([], None)):
+        opts = ga.EngineOptions.from_args(ap.parse_args(argv))
+        jopts = JGA.EngineOptions.from_args(jap.parse_args(argv))
+        assert (opts.cost_table, opts.fitness_workers) == (
+            jopts.cost_table, jopts.fitness_workers)
+        assert opts.cost_table == ct
+
+
+@pytest.mark.parametrize("workers", [0, -2])
+def test_fitness_workers_refused_as_in_jax(workers):
+    with pytest.raises(ValueError, match="fitness_workers") as got:
+        ga.EngineOptions(device="cpu", fitness_workers=workers)
+    with pytest.raises(ValueError, match="fitness_workers") as want:
+        JGA.EngineOptions(fitness_workers=workers)
+    assert str(got.value) == str(want.value)

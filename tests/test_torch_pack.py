@@ -25,6 +25,14 @@ from repro_torch import ga  # noqa: E402
 from repro_torch.ckpt import checkpoint as CKPT  # noqa: E402
 from repro_torch.ga import compile_cache as CC  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 CPU = ga.EngineOptions(device="cpu")
 
 

@@ -32,6 +32,14 @@ from repro_torch.serve.scheduler import (DEADLINE_EXCEEDED, DONE,  # noqa: E402
                                          FAILED, PREEMPTED, QUEUED,
                                          GAScheduler, retry_backoff)
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = ga.EngineOptions(device="cpu")
 BACKENDS = ["reference", "fused"]
@@ -354,10 +362,40 @@ def test_scheduler_ttl_evicts_finished_jobs(tmp_path):
         sched.shutdown()
 
 
-def test_cost_tables_wait_for_the_autotune_port(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _sched(tmp_path, cost_table="table.json")
-    sched = _sched(tmp_path, cost_table=False)
+def test_scheduler_takes_a_table_path_and_orders_by_it(tmp_path):
+    """A cost-table path is resolved once and estimates every submit; within
+    one priority the group with the shorter estimated wall dispatches first,
+    though it was submitted second, and every job equals its solo run."""
+    from repro_torch.autotune import CostTable
+    from repro_torch.ga import compile_cache as CC
+    kw = dict(n_islands=2, migrate_every=4, gens_per_epoch=8)
+    long = [_spec(generations=48, seed=s, **kw) for s in (1, 2)]
+    short = [_spec(generations=16, seed=s, **kw) for s in (3, 4)]
+    table = CostTable()
+    for mode, g, rate in (("resident", 8, 50.0), ("gridded", 4, 10.0)):
+        table.add(CC.plan_point(long[0], executor="fused", mode=mode,
+                                n_shards=1), g, rate)
+    path = table.save(str(tmp_path / "table.json"))
+    sched = _sched(tmp_path, backend="fused-islands", cost_table=path,
+                   paused=True)
+    try:
+        assert len(sched.cost_table) == 2
+        ids = [sched.submit(s) for s in long + short]
+        assert [sched.job(i).est_gens_per_s for i in ids] == [50.0] * 4
+        sched.resume_dispatch()
+        for jid, spec in zip(ids, long + short):
+            _same_as_solo(sched.result(jid, timeout=T), spec,
+                          "fused-islands")
+        stats = sched.stats()
+        assert stats["plan_table_entries"] == 2
+        assert stats["plans_measured"] == 2 and stats["packs_launched"] == 2
+        with open(tmp_path / "root" / JRN.JOURNAL_NAME) as f:
+            order = [ev["job_ids"] for ev in map(json.loads, f)
+                     if ev["ev"] == "dispatch"]
+        assert order == [ids[2:], ids[:2]]
+    finally:
+        sched.shutdown()
+    sched = _sched(tmp_path / "off", cost_table=False)
     try:
         assert sched.cost_table is None
         assert sched.stats()["plan_table_entries"] == 0

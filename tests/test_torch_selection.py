@@ -34,6 +34,14 @@ from repro_torch.core import ga as TG  # noqa: E402
 from repro_torch.core import selection as TS  # noqa: E402
 from repro_torch.ga import operators as TOPS  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 SIZES = (16, 64, 1024)
 CPU = TGA.EngineOptions(device="cpu")
 

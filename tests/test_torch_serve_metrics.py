@@ -26,6 +26,14 @@ from repro_torch.serve import engine as TENG  # noqa: E402
 from repro_torch.serve import metrics_http as THTTP  # noqa: E402
 from repro_torch.serve.scheduler import GAScheduler  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_ambient_cost_table(monkeypatch):
+    """The plans here are the heuristic's: no cost table found on the host
+    may move them."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+
+
 CPU = ga.EngineOptions(device="cpu")
 WALL_KEYS = ("wall_s", "generations_per_s", "generations_per_s_per_shard")
 
