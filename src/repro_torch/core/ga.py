@@ -303,18 +303,20 @@ def host_fitness(y) -> np.ndarray:
 
 def run_eager(cfg: GAConfig, fit: FitnessFn, k_generations: int,
               state: Optional[GAState] = None, apply_ops_fn=None, *,
-              device="cpu") -> GARun:
+              device) -> GARun:
     """Host-loop driver for fitness evaluated outside the operator step
     (a simulator, a training trial): each generation `fit(state.x)` crosses
     to the host as float32, the best and mean are taken there with numpy,
     and the operators run as the plain tensor step on the state's device.
     `apply_ops_fn(state, y, cfg) -> state` swaps the SM/CM/MM pipeline
     (defaults to `generation_with_y`); `device` places a fresh state when
-    none is given."""
+    none is given, and a given state must lie on it."""
+    dev = torch.device(device)
     if state is None:
-        state = init_state(cfg, device=device)
+        state = init_state(cfg, device=dev)
+    elif state.x.device.type != dev.type:
+        raise ValueError(f"the state lies on {state.x.device}, not {dev}")
     step = apply_ops_fn or generation_with_y
-    dev = state.x.device
     sign = 1.0 if cfg.minimize else -1.0
     best_y = np.inf
     best_x = torch.zeros((cfg.v,), dtype=torch.int32, device=dev)

@@ -54,6 +54,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -810,21 +811,19 @@ FusedIslandsBackend = _compose("fused-islands", FusedExecutor,
 # ---------------------------------------------------------------------------
 
 
-def _pooled_fitness(fit, workers: int):
+def _pooled_fitness(fit, pool, workers: int):
     """Population-parallel host fitness: split the (N, V) batch into
-    `workers` contiguous row chunks and evaluate them on a bounded thread
-    pool.  Chunks come back in submission order and are concatenated, so
-    the result is bitwise identical to the serial batch call — the pool
-    only overlaps the (GIL-releasing or I/O-bound) fitness work.  The pool
-    lives for one call."""
-    from concurrent.futures import ThreadPoolExecutor
+    `workers` contiguous row chunks and evaluate them on `pool`, a bounded
+    thread pool that outlives the call.  Chunks come back in submission
+    order and are concatenated, so the result is bitwise identical to the
+    serial batch call — the pool only overlaps the (GIL-releasing or
+    I/O-bound) fitness work."""
 
     def pooled(x):
         n = x.shape[0]
         chunk = max(1, -(-n // workers))
         parts = [x[i:i + chunk] for i in range(0, n, chunk)]
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            outs = list(pool.map(lambda p: G.host_fitness(fit(p)), parts))
+        outs = list(pool.map(lambda p: G.host_fitness(fit(p)), parts))
         return np.concatenate(outs, axis=0)
 
     return pooled
@@ -841,9 +840,15 @@ class EagerBackend(Backend):
         super().__init__(spec, options=options)
         spec = self.spec
         self.fit = spec.fitness_fn()
-        if self.options.fitness_workers > 1:
-            self.fit = _pooled_fitness(self.fit,
-                                       self.options.fitness_workers)
+        workers = self.options.fitness_workers
+        if workers > 1:
+            # one pool a backend, as the JAX package keeps it; its idle
+            # workers end when the backend is collected
+            from concurrent.futures import ThreadPoolExecutor
+            pool = ThreadPoolExecutor(max_workers=workers,
+                                      thread_name_prefix="ga-fitness")
+            weakref.finalize(self, pool.shutdown, wait=False)
+            self.fit = _pooled_fitness(self.fit, pool, workers)
         self.apply_ops = OPS.make_apply_ops(spec.selection, spec.crossover,
                                             spec.mutation)
 
@@ -860,7 +865,7 @@ class EagerBackend(Backend):
 
     def _run(self, state, gens: int) -> G.GARun:
         return G.run_eager(self.cfg, self.fit, gens, state,
-                           apply_ops_fn=self.apply_ops)
+                           apply_ops_fn=self.apply_ops, device=self.device)
 
     def segment(self, state, gens: int) -> Segment:
         R = self.spec.n_repeats

@@ -224,6 +224,12 @@ class GAScheduler:
         self.faults = FLT.resolve_faults(self.options.faults)
         # resolve once: every engine build + submit estimate reuses it
         self.cost_table = resolve_table(self.options.cost_table)
+        # every engine built here plans from that table, or from the
+        # heuristic alone: never from a table its own discovery would find
+        self.options = dataclasses.replace(
+            self.options, cost_table=(self.cost_table
+                                      if self.cost_table is not None
+                                      else False))
         self._cv = threading.Condition()
         self._queue: List[_Unit] = []
         self._jobs: Dict[str, Job] = {}
@@ -590,7 +596,7 @@ class GAScheduler:
         from a slice of the pack checkpoint (`ga.repack_checkpoint`)."""
         from repro_torch import ga
         specs = [j.spec for j in unit.jobs]
-        opts = dataclasses.replace(self.options, cost_table=self.cost_table,
+        opts = dataclasses.replace(self.options,
                                    faults=False)   # recovery ≠ injection site
         new_units = []
         for j in live:
@@ -745,7 +751,7 @@ class GAScheduler:
         pe = PackedEngine(
             [j.spec for j in jobs], jobs[0].backend,
             options=dataclasses.replace(
-                self.options, cost_table=self.cost_table,
+                self.options,
                 # share THIS injector instance (counters and all); False
                 # stops a disarmed engine re-resolving the ambient env
                 faults=self.faults if self.faults is not None else False))

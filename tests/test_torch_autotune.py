@@ -502,6 +502,35 @@ def test_scheduler_plan_counters_and_table_gauge(tmp_path):
         sched.shutdown()
 
 
+@pytest.mark.parametrize("cost_table,source", [(False, "heuristic"),
+                                                (None, "measured")])
+def test_scheduler_engines_follow_its_table_not_discovery(
+        tmp_path, monkeypatch, cost_table, source):
+    """An ambient table on the host reaches the packs only when the
+    scheduler discovers it (None): False pins every engine it builds to
+    the heuristic, so its counters and its gauge agree with its plans."""
+    spec = _spec()
+    t = CostTable()
+    t.add(_point(spec, "resident"), 8, 10.0)
+    t.add(_point(spec, "gridded"), 4, 100.0)
+    monkeypatch.setenv("REPRO_GA_COST_TABLE",
+                       t.save(str(tmp_path / "ambient.json")))
+    reg = GAMetricsRegistry()
+    sched = _sched(tmp_path, registry=reg, backend="fused-islands",
+                   cost_table=cost_table)
+    try:
+        jid = sched.submit(spec)
+        sched.result(jid, timeout=T)
+        stats = sched.stats()
+        measured = source == "measured"
+        assert stats["plans_measured"] == int(measured)
+        assert stats["plans_heuristic"] == int(not measured)
+        assert stats["plan_table_entries"] == (2 if measured else 0)
+        assert reg.metrics()["jobs"][jid]["plan_source"] == source
+    finally:
+        sched.shutdown()
+
+
 def test_scheduler_refuses_two_tables(tmp_path):
     with pytest.raises(ValueError, match="both"):
         _sched(tmp_path, cost_table=CostTable(),

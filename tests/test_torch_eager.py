@@ -91,6 +91,44 @@ def test_pooled_fitness_equals_the_serial_call():
             np.testing.assert_array_equal(a, b)
 
 
+def test_fitness_pool_lives_with_the_backend(monkeypatch):
+    """One pool a backend, reused by every generation and every run, shut
+    down when the backend is collected."""
+    import concurrent.futures as cf
+    import gc
+
+    pools = []
+
+    class Counted(cf.ThreadPoolExecutor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pools.append(self)
+
+    monkeypatch.setattr(cf, "ThreadPoolExecutor", Counted)
+    spec = ga.GASpec(**_kw(problem="rastrigin:6", n=66, generations=6))
+    eng = ga.Engine(spec, "eager",
+                    options=ga.EngineOptions(device="cpu",
+                                             fitness_workers=3))
+    first, again = eng.run(), eng.run()
+    assert first.best_fitness == again.best_fitness
+    assert len(pools) == 1 and not pools[0]._shutdown
+    del eng
+    gc.collect()
+    assert pools[0]._shutdown
+
+
+def test_run_eager_places_a_fresh_state_only_where_asked():
+    cfg = TG.GAConfig(n=16, c=10, v=2, seed=3, mode="arith")
+    fit = TG.fitness_for_problem("F2", cfg)
+    with pytest.raises(TypeError, match="device"):
+        TG.run_eager(cfg, fit, 2)
+    st = TG.init_state(cfg, device="cpu")
+    with pytest.raises(ValueError, match="lies on"):
+        TG.run_eager(cfg, fit, 2, st, device="meta")
+    out = TG.run_eager(cfg, fit, 2, st, device="cpu")
+    assert out.state.x.device.type == "cpu" and int(out.state.k) == 2
+
+
 @pytest.mark.parametrize("minimize", [True, False])
 def test_run_eager_matches_jax_run_eager(minimize):
     cfg_kw = dict(n=32, c=10, v=2, mutation_rate=0.05, minimize=minimize,
@@ -99,7 +137,7 @@ def test_run_eager_matches_jax_run_eager(minimize):
     jfit = JG.fitness_for_problem("F2", jcfg)
     tfit = TG.fitness_for_problem("F2", tcfg)
     j = JG.run_eager(jcfg, jfit, 15)
-    t = TG.run_eager(tcfg, tfit, 15)
+    t = TG.run_eager(tcfg, tfit, 15, device="cpu")
     assert float(t.best_y) == float(j.best_y)
     np.testing.assert_array_equal(convert.words_to_numpy(t.best_x),
                                   np.asarray(j.best_x))
