@@ -20,8 +20,11 @@ into their input tensors (each kernel wrapper writes fresh outputs, and
 the plain operators and migration are functional), so the state needs no
 copy between replays.
 
-The sweep runs on the options' device; a candidate that cannot launch
-there raises.  A table only ever chooses among candidates the engine's
+The sweep runs on the options' device, and over its mesh when the options
+hold one: a sweep on a mesh measures the sharded candidates
+(resident-sharded, the sharded gridded and streamed plans) under points
+whose `shards` is the mesh's count.  A candidate that cannot launch there
+raises.  A table only ever chooses among candidates the engine's
 device can run: it never moves a run to another device or to a plain
 version.
 
@@ -120,7 +123,7 @@ def measure_candidate(spec, mode: str, *, backend: str = "auto",
         once, warmup=max(0, warmup - 1), min_reps=min_reps,
         max_reps=max_reps, cov_threshold=cov_threshold, timer=timer)
     point = CC.plan_point(spec, executor=topo.executor.name,
-                          mode=topo.plan["mode"], n_shards=1,
+                          mode=topo.plan["mode"], n_shards=topo.n_shards,
                           lane=topo.plan.get("lane"))
     return {"point": point,
             "gens_per_launch": topo.plan["gens_per_launch"],

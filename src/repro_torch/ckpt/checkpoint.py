@@ -29,8 +29,10 @@ device's work on it is done) before they return, so a kernel or an
 in-place op of the next chunk cannot change what is written.
 
 `restore(ckpt_dir, step, tree_like)` places each leaf on the device of
-`tree_like`'s leaf.  Re-sharding onto a mesh (`shardings=` in the JAX
-package) waits for the multi-device slice.
+`tree_like`'s leaf; `shardings=` places it elsewhere — on a given device,
+or over a mesh (the elastic-restart path of the JAX package: the saved
+run's mesh need not match the restoring one's, since a step always holds
+whole arrays).
 
 Fault injection: `save` consults `repro_torch.faults` (the ambient
 ``REPRO_GA_FAULTS`` injector, or one passed via ``faults=``) at the
@@ -67,27 +69,30 @@ class CheckpointCorrupt(RuntimeError):
     """A checkpoint step failed shard-checksum validation."""
 
 
-def _flatten(tree, prefix: str = "", word: bool = False
-             ) -> List[Tuple[str, Any, bool]]:
+def _flatten(tree, prefix: str = "", word: bool = False,
+             is_leaf=lambda t: False) -> List[Tuple[str, Any, bool]]:
     """(key, leaf, is_word) in the JAX package's flattening order and key
-    spelling; `is_word` marks a GAState's uint32 word arrays."""
+    spelling; `is_word` marks a GAState's uint32 word arrays; `is_leaf`
+    stops the walk at containers that are leaves (a placement tuple)."""
     join = (lambda k: f"{prefix}{_SEP}{k}") if prefix else (lambda k: k)
+    if is_leaf(tree):
+        return [(prefix, tree, word)]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         out = []
         for name in tree._fields:
             out += _flatten(getattr(tree, name), join(f".{name}"),
                             isinstance(tree, GAState)
-                            and name in _WORD_FIELDS)
+                            and name in _WORD_FIELDS, is_leaf)
         return out
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += _flatten(tree[k], join(str(k)))
+            out += _flatten(tree[k], join(str(k)), is_leaf=is_leaf)
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
-            out += _flatten(v, join(str(i)))
+            out += _flatten(v, join(str(i)), is_leaf=is_leaf)
         return out
     return [(prefix, tree, word)]
 
@@ -265,28 +270,63 @@ def latest_step(ckpt_dir: str, validate: bool = True) -> Optional[int]:
     return None
 
 
-def _leaf_like(arr: np.ndarray, like, word: bool):
-    """The stored array as a leaf of `like`'s kind, dtype and device."""
+def _is_placement(p) -> bool:
+    """A `(Mesh, axis[, mesh_axes])` placement (a leaf of `shardings`)."""
+    return (isinstance(p, tuple) and not hasattr(p, "_fields")
+            and len(p) in (2, 3) and hasattr(p[0], "shard_devices"))
+
+
+def _placed_device(arr: np.ndarray, place, key: str, like_device):
+    """The device a leaf of shape `arr.shape` lands on under `place`: None
+    keeps `like_device`; a device is taken as it is; `(mesh, axis[,
+    mesh_axes])` needs `axis` to split evenly over the mesh's shards over
+    `mesh_axes` (default all axes) and lands on the mesh's first device,
+    where a sharded run keeps its state between segments (the run splits
+    it onto the shards itself)."""
+    if place is None:
+        return like_device
+    if not _is_placement(place):
+        return torch.device(place)
+    mesh, axis = place[0], int(place[1])
+    axes = tuple(place[2]) if len(place) > 2 and place[2] else \
+        tuple(mesh.axis_names)
+    shards = mesh.shards(axes)
+    if arr.ndim <= axis or arr.shape[axis] % shards:
+        raise ValueError(
+            f"checkpoint key {key!r} of shape {arr.shape} cannot shard its "
+            f"axis {axis} evenly over the {shards} shard(s) of mesh axes "
+            f"{axes}")
+    return mesh.first_device
+
+
+def _leaf_like(arr: np.ndarray, like, word: bool, device=None):
+    """The stored array as a leaf of `like`'s kind and dtype, on `device`
+    (default `like`'s)."""
     if isinstance(like, torch.Tensor):
+        device = like.device if device is None else torch.device(device)
         if word:
-            t = convert.words_from_numpy(arr, device=like.device)
+            t = convert.words_from_numpy(arr, device=device)
         else:
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(
-                device=like.device, dtype=like.dtype)
-        if t.device != like.device:
+                device=device, dtype=like.dtype)
+        if t.device != device:
             raise RuntimeError(f"restored leaf landed on {t.device}, "
-                               f"not {like.device}")
+                               f"not {device}")
         return t
     want = getattr(like, "dtype", arr.dtype)
     return arr if arr.dtype == want else arr.astype(want)
 
 
-def restore(ckpt_dir: str, step: int, tree_like,
+def restore(ckpt_dir: str, step: int, tree_like, shardings=None,
             validate: bool = True) -> Tuple[Any, Dict]:
-    """Restore into the structure of `tree_like`, each leaf on the device
-    and in the dtype of `tree_like`'s leaf.  With `validate` (default),
-    shard checksums are re-checked first and a mismatch raises
-    `CheckpointCorrupt` instead of an opaque npz error."""
+    """Restore into the structure of `tree_like`, each leaf in the dtype of
+    `tree_like`'s leaf and on its device — or where `shardings` (a tree
+    matching `tree_like`) places it: a leaf `None` keeps `tree_like`'s
+    device, a `torch.device` moves there, a `(Mesh, axis[, mesh_axes])`
+    places the leaf's `axis` over that mesh (see `_placed_device`).  This
+    is the elastic-restart path: the saving run's mesh need not match.
+    With `validate` (default), shard checksums are re-checked first and a
+    mismatch raises `CheckpointCorrupt` instead of an opaque npz error."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if validate:
         reason = validate_step(ckpt_dir, step)
@@ -296,6 +336,9 @@ def restore(ckpt_dir: str, step: int, tree_like,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     keymeta = manifest["keys"]
+    place = ({k: p for k, p, _ in _flatten(shardings,
+                                           is_leaf=_is_placement)}
+             if shardings is not None else {})
     out = {}
     with np.load(os.path.join(path, "shard_0.npz")) as data:
         for k, like, word in _flatten(tree_like):
@@ -306,5 +349,7 @@ def restore(ckpt_dir: str, step: int, tree_like,
             if word and arr.dtype != np.uint32:
                 raise TypeError(f"checkpoint key {k!r} holds {arr.dtype}, "
                                 "not the uint32 words of a GAState")
-            out[k] = _leaf_like(arr, like, word)
+            device = _placed_device(arr, place.get(k), k,
+                                    getattr(like, "device", None))
+            out[k] = _leaf_like(arr, like, word, device)
     return _unflatten(tree_like, out), manifest.get("extra", {})

@@ -1,5 +1,5 @@
-"""Island-model parallel GA on one device: a stack of populations with ring
-migration.
+"""Island-model parallel GA: a stack of populations with ring migration, on
+one device or split over the shards of a mesh.
 
 The paper instantiates the full GA once per FPGA; its cited related work
 (Guo et al., multi-FPGA parallel GAs) scales by running isolated
@@ -20,7 +20,7 @@ splice is a no-op, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -148,6 +148,50 @@ def migrate_ring(states: G.GAState, y: torch.Tensor, *, minimize: bool
     (new_states, elite_x, elite_y)."""
     x2, elite_x, elite_y = ring_migrate_stack(states.x, y, minimize=minimize)
     return states._replace(x=x2), elite_x, elite_y
+
+
+# ---------------------------------------------------------------------------
+# Sharded ring migration — bit-identical to migrate_ring
+# ---------------------------------------------------------------------------
+
+
+def ring_shift_sharded(xs: Sequence[torch.Tensor], mesh,
+                       axis_names: Sequence[str]) -> List[torch.Tensor]:
+    """Send each shard's tensor to the next shard in row-major order over
+    `axis_names`: shard j receives shard j-1's tensor (shard 0 the last
+    one's), on its own device.
+
+    `xs` holds one tensor a shard, in the logical order of
+    `mesh.shard_devices(axis_names)`.  Over several axes this is one global
+    ring over the raveled axis tuple, as the JAX package's `ppermute`
+    cascade makes it; the devices behind the positions never enter the
+    order, so shards that share a device form the same ring."""
+    devices = mesh.shard_devices(axis_names)
+    if len(xs) != len(devices):
+        raise ValueError(f"{len(xs)} tensors for {len(devices)} mesh shards")
+    return [xs[j - 1].to(devices[j]) for j in range(len(xs))]
+
+
+def migrate_ring_sharded(states: Sequence[G.GAState],
+                         ys: Sequence[torch.Tensor], *, minimize: bool,
+                         mesh, axis_names: Sequence[str]
+                         ) -> Tuple[List[G.GAState], List[torch.Tensor],
+                                    List[torch.Tensor]]:
+    """`migrate_ring` over an island axis split into per-shard blocks.
+
+    states/ys hold each shard's [..., I_local, ...] block in the order of
+    `ring_shift_sharded`.  Locally the elites shift down by one island;
+    the last local island's elite crosses to the next shard and lands on
+    its island 0 — globally the roll by one of `migrate_ring`, bit for bit.
+    Returns (new_states, elite_x, elite_y), each a list a shard."""
+    elites = [best_of(s, y, minimize=minimize) for s, y in zip(states, ys)]
+    recv = ring_shift_sharded([ex[..., -1, :] for ex, _ in elites], mesh,
+                              axis_names)
+    out = []
+    for s, y, (ex, _), r in zip(states, ys, elites, recv):
+        shifted = torch.cat([r.unsqueeze(-2), ex[..., :-1, :]], dim=-2)
+        out.append(splice_elites(s, y, shifted, minimize=minimize))
+    return out, [ex for ex, _ in elites], [ey for _, ey in elites]
 
 
 # ---------------------------------------------------------------------------

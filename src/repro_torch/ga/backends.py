@@ -25,7 +25,12 @@ A **topology** owns population layout, the epoch loop and migration:
                launch shape (see `IslandRingTopology`): the ring between
                K1 launches (gridded), inside the K2 kernel (resident), or
                inside a cooperative K3 launch (streamed) — all
-               bit-identical.
+               bit-identical.  Given a mesh (`EngineOptions.mesh`), the
+               island axis splits over its shards (`spec.mesh_axes`,
+               default all axes), each shard's launches run on its device,
+               and the ring crosses shards through the boundary elites
+               (`islands.migrate_ring_sharded`), bit-identical to the run
+               on one device.
 
 The registry exposes the compositions under the JAX package's names:
 
@@ -38,8 +43,8 @@ and, outside the composition, `eager`: a host loop for fitness evaluated
 outside the operator step (`jit_fitness=False`), the operators the plain
 tensor step on the engine's device.
 
-Each backend implements `supports(spec)` (capability check → reason string
-or None), `init()` (backend-native state), `init_packed(seeds)` (one
+Each backend implements `supports(spec, mesh)` (capability check → reason
+string or None), `init()` (backend-native state), `init_packed(seeds)` (one
 replica slot per seed, for job packing) and `segment(state, gens)`
 (advance `gens` generations, returning the new state + telemetry).
 
@@ -129,7 +134,7 @@ def _check_seeds(seeds, n_repeats: int) -> None:
 class Backend:
     """One execution strategy for a GASpec, on the device of its
     `ga.EngineOptions` (which raises when that is CUDA and no card is
-    there).  The options' cost table is resolved once here
+    there) and, for the island ring, over its mesh.  The options' cost table is resolved once here
     (`repro_torch.autotune.resolve_table`: None discovers the ambient
     per-host table, False pins the pure heuristic) and feeds the measured
     tier of the island-ring epoch planner."""
@@ -146,11 +151,13 @@ class Backend:
         self.spec = spec
         self.cfg = spec.ga_config()
         self.device = self.options.torch_device()
+        self.mesh = self.options.mesh
         self.cost_table = _cost.resolve_table(self.options.cost_table)
 
     @staticmethod
-    def supports(spec: GASpec) -> Optional[str]:
-        """None if the spec can run on this backend, else the reason why not."""
+    def supports(spec: GASpec, mesh=None) -> Optional[str]:
+        """None if the spec can run on this backend (over `mesh`, when
+        given), else the reason why not."""
         raise NotImplementedError
 
     def init(self):
@@ -312,16 +319,27 @@ EXECUTORS: Dict[str, type] = {
 # ---------------------------------------------------------------------------
 
 
+def _mesh_axes(spec: GASpec, mesh) -> Optional[tuple]:
+    """Mesh axes the island axis shards over: `spec.mesh_axes` or all axes
+    of the mesh (None without a mesh)."""
+    if spec.mesh_axes is not None:
+        return tuple(spec.mesh_axes)
+    if mesh is not None:
+        return tuple(mesh.axis_names)
+    return None
+
+
 class Topology:
     name = "?"
 
     def __init__(self, spec: GASpec, executor: Executor, *, device,
-                 cost_table=None, plan_override=None,
+                 mesh=None, cost_table=None, plan_override=None,
                  stream_tile_islands=None):
         self.spec = spec
         self.cfg = spec.ga_config()
         self.executor = executor
         self.device = device
+        self.mesh = mesh
         # a measured cost table, a forced epoch mode and a pinned streamed
         # tile; only the island_ring planner reads them — single has one
         # launch shape
@@ -334,17 +352,18 @@ class Topology:
         """Instance memo in front of the process-global RUNNER_CACHE, so the
         global hit/miss counters record one resolution per topology
         instance (one per Engine build) instead of one per launch.  The
-        key holds the spec's shape, this composition and the device."""
+        key holds the spec's shape, this composition, the device and the
+        mesh."""
         fn = self._cache.get(parts)
         if fn is None:
             key = CC.runner_key(self.spec, self.name, self.executor.name,
-                                self.device, *parts)
+                                self.device, *parts, mesh=self.mesh)
             fn = CC.RUNNER_CACHE.get_or_build(key, builder)
             self._cache[parts] = fn
         return fn
 
     @staticmethod
-    def supports(spec: GASpec) -> Optional[str]:
+    def supports(spec: GASpec, mesh=None) -> Optional[str]:
         raise NotImplementedError
 
     def init(self):
@@ -352,6 +371,11 @@ class Topology:
 
     def init_packed(self, seeds):
         raise NotImplementedError
+
+    def shardings(self, state):
+        """`ckpt.checkpoint.restore`'s placement of each leaf of `state`
+        (None: the leaves' own devices)."""
+        return None
 
     def segment(self, state, gens: int) -> Segment:
         raise NotImplementedError
@@ -364,10 +388,14 @@ class SingleTopology(Topology):
     name = "single"
 
     @staticmethod
-    def supports(spec: GASpec) -> Optional[str]:
+    def supports(spec: GASpec, mesh=None) -> Optional[str]:
         if spec.effective_topology != "single":
             return ("n_islands > 1; use an island_ring backend "
                     "('islands' / 'fused-islands')")
+        if mesh is not None:
+            return ("single topology would silently ignore the mesh; "
+                    "shard over devices with an island_ring backend "
+                    "(n_islands > 1)")
         return None
 
     def _solo(self) -> bool:
@@ -435,6 +463,35 @@ class IslandRingTopology(Topology):
                      global memory; its island tile comes from how many
                      blocks the card holds at once.
 
+    Given a mesh, the island axis splits into `n_shards` contiguous blocks
+    of `i_local` islands, in the logical order of
+    `mesh.shard_devices(spec.mesh_axes or all axes)`.  Between segments the
+    state stays one stack of global tensors on the mesh's first device
+    (what checkpoints, packs and results read); `segment` splits it onto
+    the shards' devices before its first launch and gathers it after its
+    last.  In between, every launch runs a shard at a time and the ring
+    crosses shards through `islands.ring_shift_sharded`:
+
+      gridded           the executor block a shard (K1 launches on fused),
+                        then `islands.migrate_ring_sharded` on the
+                        migration fitness;
+      resident-sharded  (fused, ring, the local islands fit a cluster) one
+                        K2 launch a shard and interval in the boundary
+                        form: the intra-shard ring inside the kernel, the
+                        shard's last elite and island 0's worst slot out;
+                        the elites shift to the next shard and splice in
+                        PyTorch;
+      streamed          (fused, the local islands past a cluster) per
+                        interval one K3 launch a shard in the one-interval
+                        form (no `splice`), the pre-splice elites shifted
+                        across shards and spliced in PyTorch.  The
+                        ring-inside form (`splice=True`) runs one shard's
+                        islands only, so its ring cannot cross a shard
+                        boundary.
+
+    No resident or resident-free plan runs on a mesh, as in the JAX
+    package.
+
     Selection is two-tier, as in the JAX package.  candidates[0] is the
     heuristic (`plan_source: "heuristic"`).  When a measured cost table
     covers the heuristic's own point, the planner instead takes the
@@ -451,13 +508,18 @@ class IslandRingTopology(Topology):
     name = "island_ring"
 
     def __init__(self, spec: GASpec, executor: Executor, *, device,
-                 cost_table=None, plan_override=None,
+                 mesh=None, cost_table=None, plan_override=None,
                  stream_tile_islands=None):
-        super().__init__(spec, executor, device=device,
+        super().__init__(spec, executor, device=device, mesh=mesh,
                          cost_table=cost_table, plan_override=plan_override,
                          stream_tile_islands=stream_tile_islands)
         self.icfg = ISL.IslandConfig(ga=self.cfg, n_islands=spec.n_islands,
                                      migrate_every=spec.migrate_every)
+        self._mesh_axes = _mesh_axes(spec, mesh)
+        self.n_shards = mesh.shards(self._mesh_axes) if mesh else 1
+        self.i_local = max(1, spec.n_islands // self.n_shards)
+        self._shard_devices = (mesh.shard_devices(self._mesh_axes)
+                               if mesh else None)
         # planned per engine, not cached: cheap (the card's occupancy it
         # reads is cached in kernels.ga_step) and it follows the planner's
         # inputs wherever they change
@@ -487,14 +549,14 @@ class IslandRingTopology(Topology):
         cfg = (self.cfg if lane == self.cfg.sel_lane
                else dataclasses.replace(self.cfg, sel_lane=lane))
         return K.epoch_mode_candidates(
-            cfg, spec.n_islands, executor=self.executor.name,
+            cfg, self.i_local, executor=self.executor.name,
             migration=spec.migration, gens_per_epoch=spec.gens_per_epoch,
             migrate_every=spec.migrate_every, groups=spec.n_repeats,
-            device=self.device)
+            device=self.device, sharded=self.mesh is not None)
 
     def _plan_point(self, cand: Dict[str, Any]) -> Dict[str, Any]:
         return CC.plan_point(self.spec, executor=self.executor.name,
-                             mode=cand["mode"], n_shards=1,
+                             mode=cand["mode"], n_shards=self.n_shards,
                              lane=cand.get("lane"))
 
     def _measured(self, cands: list) -> Optional[Dict[str, Any]]:
@@ -535,9 +597,14 @@ class IslandRingTopology(Topology):
             plan = next((dict(c, plan_source="forced") for c in cands
                          if c["mode"] == want), None)
             if plan is None:
-                hint = (" — streamed is only offered when the resident "
-                        "epoch does not fit the card (this spec fits "
-                        "resident)" if want == "streamed" else "")
+                hint = ""
+                if want == "streamed":
+                    hint = (" — streamed is only offered when the resident "
+                            "epoch does not fit the card (this spec fits "
+                            "resident)")
+                elif want == "resident-sharded" and self.mesh is None:
+                    hint = (" — resident-sharded needs a mesh "
+                            "(EngineOptions(mesh=...))")
                 raise ValueError(
                     f"plan_override mode {want!r} is not feasible for this "
                     f"spec (candidates: {[c['mode'] for c in cands]})"
@@ -547,7 +614,7 @@ class IslandRingTopology(Topology):
             if self.stream_tile_islands is not None:
                 t = int(self.stream_tile_islands)
                 reason = K.streamed_tile_reason(
-                    self.cfg, spec.n_repeats, spec.n_islands, t, self.device)
+                    self.cfg, spec.n_repeats, self.i_local, t, self.device)
                 if reason is not None:
                     raise ValueError(reason)
                 plan["tile_islands"] = t
@@ -559,9 +626,19 @@ class IslandRingTopology(Topology):
         return plan
 
     @staticmethod
-    def supports(spec: GASpec) -> Optional[str]:
+    def supports(spec: GASpec, mesh=None) -> Optional[str]:
         if spec.topology == "single":
             return "spec pins topology='single'; use a single backend"
+        if mesh is not None:
+            axes = _mesh_axes(spec, mesh)
+            missing = [a for a in axes if a not in mesh.shape]
+            if missing:
+                return (f"mesh_axes {missing} not in the mesh "
+                        f"(axes: {tuple(mesh.axis_names)})")
+            n_shards = mesh.shards(axes)
+            if spec.n_islands % n_shards:
+                return (f"n_islands={spec.n_islands} must divide evenly over "
+                        f"the {n_shards} mesh shard(s)")
         return None
 
     def init(self):
@@ -576,6 +653,14 @@ class IslandRingTopology(Topology):
             return _islands_seeded(self.icfg, seeds[0], self.device)
         return _stack_island_replicas_seeded(self.icfg, seeds, self.device)
 
+    def shardings(self, state):
+        """On a mesh, each leaf's island axis over the mesh's shards: a
+        restore may come from another mesh's checkpoint, or from none."""
+        if self.mesh is None:
+            return None
+        place = (self.mesh, self._island_dim(), self._mesh_axes)
+        return type(state)(*(place for _ in state))
+
     # ---- runners: state -> (state', best_y, best_x, traj_mean) ----------
     # best_* hold each island's best of every migration interval the launch
     # ran ([K, R?, I]); traj_mean the final fitness means ([R?, I]).  The
@@ -589,6 +674,17 @@ class IslandRingTopology(Topology):
     def _ungrouped(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return t if self.spec.n_repeats > 1 else t.select(dim, 0)
 
+    @staticmethod
+    def _gridded_block(blk, states: G.GAState):
+        """The executor block over the flattened [R * I] stack."""
+        lead = states.x.shape[:-2]
+        flat = G.GAState(*(t.reshape((-1,) + t.shape[len(lead):])
+                           for t in states))
+        flat, by, bx, _tb, tm = blk(flat)
+        states = G.GAState(*(t.reshape(lead + t.shape[1:]) for t in flat))
+        return (states, by.reshape((1,) + lead),
+                bx.reshape((1,) + lead + (-1,)), tm.reshape(lead + (-1,)))
+
     def _gridded_runner(self):
         """One epoch: an executor block of `migrate_every` generations over
         the flattened [R * I] stack, then the ring on the final fitness."""
@@ -597,17 +693,11 @@ class IslandRingTopology(Topology):
         migrate = self.spec.migration == "ring"
 
         def epoch(states):
-            lead = states.x.shape[:-2]
-            flat = G.GAState(*(t.reshape((-1,) + t.shape[len(lead):])
-                               for t in states))
-            flat, by, bx, _tb, tm = blk(flat)
-            states = G.GAState(*(t.reshape(lead + t.shape[1:])
-                                 for t in flat))
+            states, by, bx, tm = self._gridded_block(blk, states)
             if migrate:
                 states, _ex, _ey = ISL.migrate_ring(states, fit(states.x),
                                                     minimize=mini)
-            return (states, by.reshape((1,) + lead),
-                    bx.reshape((1,) + lead + (-1,)), tm.reshape(lead + (-1,)))
+            return states, by, bx, tm
 
         return epoch
 
@@ -657,6 +747,120 @@ class IslandRingTopology(Topology):
 
         return launch
 
+    # ---- on a mesh: runners over the list of shard states -----------------
+    # Each takes and returns one state a shard ([R?, I_local, ...] on the
+    # shard's device) with each shard's best_*/traj_mean as above.
+
+    def _island_dim(self) -> int:
+        return 0 if self.spec.n_repeats == 1 else 1
+
+    def _split(self, state: G.GAState) -> list:
+        """The global state's island blocks, copied onto their shards'
+        devices."""
+        a, il = self._island_dim(), self.i_local
+        return [G.GAState(*(t.narrow(a, j * il, il).to(dev, copy=True)
+                            for t in state))
+                for j, dev in enumerate(self._shard_devices)]
+
+    def _gather(self, parts: list, dim: int) -> torch.Tensor:
+        """One tensor on the run's device from a tensor a shard."""
+        return torch.cat([t.to(self.device) for t in parts], dim=dim)
+
+    def _gather_state(self, shards: list) -> G.GAState:
+        """The shards' states as one global state on the run's device."""
+        a = self._island_dim()
+        return G.GAState(*(self._gather(list(leaf), a)
+                           for leaf in zip(*shards)))
+
+    def _gridded_sharded_runner(self):
+        """One epoch: the executor block a shard, then
+        `islands.migrate_ring_sharded` on the migration fitness."""
+        blk = self.executor.block(self.icfg.migrate_every)
+        fit, mini = self.executor.fit, self.spec.minimize
+        migrate = self.spec.migration == "ring"
+
+        def epoch(shards):
+            outs = [self._gridded_block(blk, s) for s in shards]
+            shards = [o[0] for o in outs]
+            if migrate:
+                shards, _ex, _ey = ISL.migrate_ring_sharded(
+                    shards, [fit(s.x) for s in shards], minimize=mini,
+                    mesh=self.mesh, axis_names=self._mesh_axes)
+            return (shards, [o[1] for o in outs], [o[2] for o in outs],
+                    [o[3] for o in outs])
+
+        return epoch
+
+    def _resident_sharded_runner(self):
+        """One interval: a K2 launch a shard in the boundary form (the
+        ring among the shard's islands inside the kernel), then each
+        shard's last elite crosses to the next shard and splices into its
+        island 0 at the worst slot the kernel found there."""
+        e, prog, sq = (self.icfg.migrate_every, self.executor.program,
+                       self._ungrouped)
+
+        def launch(shards):
+            outs = []
+            for s in shards:
+                g = self._grouped(s)
+                outs.append(K.ga_epoch_kernel(
+                    g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
+                    program=prog, migrate_every=e, intervals=1,
+                    boundary=True))
+            recv = ISL.ring_shift_sharded([o[7] for o in outs], self.mesh,
+                                          self._mesh_axes)
+            new, bys, bxs, tms = [], [], [], []
+            for s, o, r in zip(shards, outs, recv):
+                x, sel, cross, mut, y, by, bx, _send, w0 = o
+                # x is the launch's fresh output: the splice writes in place
+                x[:, 0] = ISL.splice_at(x[:, 0], w0, r)
+                new.append(G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
+                                     s.k + e))
+                bys.append(sq(by, 1))
+                bxs.append(sq(bx, 1))
+                tms.append(sq(torch.mean(y, dim=-1)))
+            return new, bys, bxs, tms
+
+        return launch
+
+    def _streamed_sharded_runner(self, k: int):
+        """k intervals, each a K3 launch a shard in the one-interval form
+        (no `splice`), then the pre-splice elites shifted by one island
+        across the whole ring and spliced into the worst slots."""
+        e, tile = self.icfg.migrate_every, self.plan["tile_islands"]
+        migrate = self.spec.migration == "ring"
+        prog, sq = self.executor.program, self._ungrouped
+
+        def launch(shards):
+            gs = [self._grouped(s) for s in shards]
+            bys, bxs = [[] for _ in gs], [[] for _ in gs]
+            for _ in range(k):
+                outs = [K.ga_streamed_epoch_kernel(
+                    g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
+                    program=prog, migrate_every=e, tile_islands=tile,
+                    migrate=migrate) for g in gs]
+                xs = [o[0] for o in outs]
+                if migrate:
+                    recv = ISL.ring_shift_sharded(
+                        [o[7][:, -1] for o in outs], self.mesh,
+                        self._mesh_axes)
+                    xs = [ISL.splice_at(o[0], o[8], torch.cat(
+                        [r.unsqueeze(1), o[7][:, :-1]], dim=1))
+                        for o, r in zip(outs, recv)]
+                gs = [G.GAState(x, o[1], o[2], o[3], g.k)
+                      for x, o, g in zip(xs, outs, gs)]
+                for j, o in enumerate(outs):
+                    bys[j].append(o[5])
+                    bxs[j].append(o[6])
+            new = [G.GAState(sq(g.x), sq(g.sel_lfsr), sq(g.cross_lfsr),
+                             sq(g.mut_lfsr), s.k + k * e)
+                   for g, s in zip(gs, shards)]
+            return (new, [sq(torch.stack(b), 1) for b in bys],
+                    [sq(torch.stack(b), 1) for b in bxs],
+                    [sq(torch.mean(o[4], dim=-1)) for o in outs])
+
+        return launch
+
     def _schedule(self, epochs: int):
         """The runners of one segment and the generations a trajectory
         sample stands for.  Every plan covers the same epochs *
@@ -674,19 +878,26 @@ class IslandRingTopology(Topology):
                 left -= g
             return sched, g_max
         per_launch = self.plan["epochs_per_launch"]
+        sharded = self.mesh is not None
         sched, left = [], epochs
         while left:
             k = min(per_launch, left)
             if mode == "resident":
                 sched.append(self._cached_runner(
                     lambda k=k: self._resident_runner(k), "resident", k))
-            elif mode == "streamed":
+            elif mode == "resident-sharded":
                 sched.append(self._cached_runner(
-                    lambda k=k: self._streamed_runner(k), "streamed", k,
+                    self._resident_sharded_runner, "resident-sharded"))
+            elif mode == "streamed":
+                build = (self._streamed_sharded_runner if sharded
+                         else self._streamed_runner)
+                sched.append(self._cached_runner(
+                    lambda k=k: build(k), "streamed", k,
                     self.plan["tile_islands"]))
             else:
-                sched.append(self._cached_runner(self._gridded_runner,
-                                                 "gridded"))
+                sched.append(self._cached_runner(
+                    self._gridded_sharded_runner if sharded
+                    else self._gridded_runner, "gridded"))
             left -= k
         return sched, e * per_launch
 
@@ -698,18 +909,30 @@ class IslandRingTopology(Topology):
         at different intervals its best_x depends on the plan; folding at
         the interval makes every plan give `islands`' best_x.)  One
         trajectory sample a launch: the best over its intervals and
-        islands, and the mean of its final fitness."""
+        islands, and the mean of its final fitness.  On a mesh the state is
+        split onto the shards once, before the first launch, and gathered
+        once, after the last."""
         e = self.icfg.migrate_every
         epochs = max(1, math.ceil(gens / e))
         r_, v, mini = self.spec.n_repeats, self.cfg.v, self.spec.minimize
         reduce = np.min if mini else np.max
         sched, unit = self._schedule(epochs)
         bys, bxs, tms = [], [], []
-        for runner in sched:
-            state, by, bx, tm = runner(state)
-            bys.append(by)
-            bxs.append(bx)
-            tms.append(tm)
+        if self.mesh is None:
+            for runner in sched:
+                state, by, bx, tm = runner(state)
+                bys.append(by)
+                bxs.append(bx)
+                tms.append(tm)
+        else:
+            a = self._island_dim()
+            shards = self._split(state)
+            for runner in sched:
+                shards, by, bx, tm = runner(shards)
+                bys.append(self._gather(by, a + 1))
+                bxs.append(self._gather(bx, a + 1))
+                tms.append(self._gather(tm, a))
+            state = self._gather_state(shards)
         # one read-back for the whole segment
         ends = np.cumsum([t.shape[0] for t in bys])
         by = torch.cat(bys).cpu().numpy().reshape(ends[-1], r_, -1)
@@ -733,7 +956,8 @@ class IslandRingTopology(Topology):
         tele = RT.RunTelemetry(
             plan=RT.PlanInfo.from_plan(self.plan),
             topology=RT.TopologyInfo(
-                n_islands=self.icfg.n_islands, launches=len(sched),
+                n_islands=self.icfg.n_islands, n_shards=self.n_shards,
+                sharded=self.mesh is not None, launches=len(sched),
                 migrations=(epochs if self.spec.migration == "ring" else 0),
                 telemetry_unit_gens=unit),
             per_repeat=RT.ReplicaStats(best=rep_y, best_x=rep_x,
@@ -763,7 +987,7 @@ class ComposedBackend(Backend):
                           self.executor_cls.name, self.device, "executor"),
             lambda: self.executor_cls(self.spec))
         self.topology: Topology = self.topology_cls(
-            self.spec, self.executor, device=self.device,
+            self.spec, self.executor, device=self.device, mesh=self.mesh,
             cost_table=self.cost_table,
             plan_override=self.options.plan_override,
             stream_tile_islands=self.options.stream_tile_islands)
@@ -771,11 +995,11 @@ class ComposedBackend(Backend):
         self.executor = self.topology.executor
 
     @classmethod
-    def supports(cls, spec: GASpec) -> Optional[str]:
+    def supports(cls, spec: GASpec, mesh=None) -> Optional[str]:
         reason = cls.executor_cls.supports(spec)
         if reason is not None:
             return reason
-        return cls.topology_cls.supports(spec)
+        return cls.topology_cls.supports(spec, mesh)
 
     def init(self):
         return self.topology.init()
@@ -853,9 +1077,12 @@ class EagerBackend(Backend):
                                             spec.mutation)
 
     @staticmethod
-    def supports(spec: GASpec) -> Optional[str]:
+    def supports(spec: GASpec, mesh=None) -> Optional[str]:
         if spec.effective_topology != "single":
             return "eager driver has no migration; use an island_ring backend"
+        if mesh is not None:
+            return ("eager driver is host-local and would silently ignore "
+                    "the mesh; use an island_ring backend (n_islands > 1)")
         return None
 
     def init(self):

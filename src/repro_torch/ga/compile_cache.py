@@ -6,8 +6,8 @@ so the second one need build nothing the first one built: the compiled
 `FitnessProgram` with its FFM constants already on the device, the
 executor around it, and the runner closures of each launch shape.  This
 module holds them in one process-global LRU keyed by the spec's shape, the
-backend composition and the device (`device_fingerprint` in place of the
-JAX package's mesh fingerprint).  Safe because `cfg.seed` is consumed only
+backend composition, the device (`device_fingerprint`) and the mesh
+(`mesh_fingerprint`).  Safe because `cfg.seed` is consumed only
 by `init_state`, never inside a runner.  The epoch plan is not held here:
 an engine plans anew, which costs a few dict operations (the card's
 occupancy it reads is cached in `kernels.ga_step`) and follows the
@@ -37,6 +37,17 @@ def device_fingerprint(device) -> tuple:
         torch.cuda.current_device()
     return ("cuda", index, torch.cuda.get_device_name(index),
             torch.cuda.get_device_capability(index))
+
+
+def mesh_fingerprint(mesh) -> Optional[tuple]:
+    """Hashable identity of a mesh: axis names, shape and the (type, index)
+    of the device at each position (two meshes of the same layout over the
+    same devices run the same launches)."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names),
+            tuple(int(mesh.shape[a]) for a in mesh.axis_names),
+            tuple((d.type, d.index) for d in mesh.devices.flat))
 
 
 class CompileCache:
@@ -87,14 +98,16 @@ RUNNER_CACHE = CompileCache()
 
 
 def runner_key(spec, topology_name: str, executor_name: str, device,
-               *parts: Hashable) -> Tuple:
+               *parts: Hashable, mesh=None) -> Tuple:
     """Cache key for one built part.
 
     `spec.n_repeats` rides along because the runner closures branch on the
     R==1 vs stacked layout (not just shapes); `parts` carries part-local
-    knobs (gens, solo flag, interval count, plan override, ...)."""
+    knobs (gens, solo flag, interval count, plan override, ...); `mesh` the
+    mesh the part's island axis shards over."""
     return (spec.compile_key(), spec.n_repeats, topology_name,
-            executor_name, device_fingerprint(device)) + parts
+            executor_name, device_fingerprint(device),
+            mesh_fingerprint(mesh)) + parts
 
 
 def stage_fingerprint(spec) -> str:

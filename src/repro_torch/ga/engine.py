@@ -9,14 +9,16 @@
 
 Runs live on the card (``EngineOptions(device="cuda")``, the default)
 unless the options ask for the CPU; without a card an engine refuses to
-build instead of carrying on on the CPU.  Backend selection
+build instead of carrying on on the CPU.  `EngineOptions(mesh=...)` shards
+the island axis over a `repro_torch.launch.mesh.Mesh`.  Backend selection
 (`backend="auto"`) walks the capability matrix: eager when the fitness is
 evaluated outside the operator step (`jit_fitness=False`); for an island
 spec fused-islands on CUDA, then islands; for one population fused on
-CUDA, then reference — the kernels first where they run.  Pinning a
-backend that cannot run the spec warns and falls back to the next capable
-one — a decision about what the spec needs, never about the device or a
-kernel.
+CUDA, then reference — the kernels first where they run.  On a mesh only
+the island-ring backends take a spec (the others refuse a mesh).  Pinning
+a backend that cannot run the spec warns and falls back to the next
+capable one — a decision about what the spec needs, never about the
+device or a kernel.
 
 Streaming + checkpointing:
 
@@ -27,8 +29,10 @@ Streaming + checkpointing:
 Each chunk persists the full backend-native GAState through
 `repro_torch.ckpt.checkpoint` in the JAX package's format, so a killed run
 resumes from the last chunk (`resume=True`, the default) in either
-package.  `PackedEngine` runs many shape-compatible jobs as the replica
-slots of one backend run, each bit-identical to its solo run, and
+package, and on any mesh the spec divides over (a step holds the state
+whole; `restore(shardings=)` places it as the engine's mesh wants it).
+`PackedEngine` runs many shape-compatible jobs as the replica slots of
+one backend run, each bit-identical to its solo run, and
 `repack_checkpoint` slices a pack checkpoint down to some of its jobs.
 """
 
@@ -54,9 +58,9 @@ class BackendUnsupported(ValueError):
     """Raised when no backend can run a spec."""
 
 
-def capability_matrix(spec: GASpec) -> Dict[str, Optional[str]]:
+def capability_matrix(spec: GASpec, mesh=None) -> Dict[str, Optional[str]]:
     """Backend name -> None (supported) or the reason it cannot run."""
-    return {name: cls.supports(spec) for name, cls in BACKENDS.items()}
+    return {name: cls.supports(spec, mesh) for name, cls in BACKENDS.items()}
 
 
 def _auto_order(spec: GASpec, device: torch.device):
@@ -75,10 +79,11 @@ def _auto_order(spec: GASpec, device: torch.device):
 
 
 def resolve_backend(spec: GASpec, backend: str = "auto",
-                    device="cuda") -> str:
-    """Pick the backend name for a spec, with graceful fallback."""
+                    device="cuda", mesh=None) -> str:
+    """Pick the backend name for a spec (over `mesh`, when given), with
+    graceful fallback."""
     device = torch.device(device)
-    caps = capability_matrix(spec)
+    caps = capability_matrix(spec, mesh)
     if backend != "auto":
         if backend not in BACKENDS:
             raise BackendUnsupported(
@@ -137,6 +142,12 @@ def _refuse_backend(extra: Dict, ckpt_dir: str, backend: str,
             f"state layout{hint}")
 
 
+def _shardings(backend: Backend, state):
+    """Where a restore places each leaf of `state` (None: as `state`)."""
+    topo = getattr(backend, "topology", None)
+    return None if topo is None else topo.shardings(state)
+
+
 class Engine:
     """A spec bound to a backend on the options' device.  What it builds
     for the spec's shape comes from `ga.RUNNER_CACHE` (see
@@ -147,7 +158,8 @@ class Engine:
         self.spec = spec
         self.options = resolve_options(options)
         self.device = self.options.torch_device()
-        self.backend_name = resolve_backend(spec, backend, self.device)
+        self.backend_name = resolve_backend(spec, backend, self.device,
+                                            self.options.mesh)
         # resolved ONCE and shared with every checkpoint write: fault-rule
         # occurrence counters live on the injector instance
         self.faults = FLT.resolve_faults(self.options.faults)
@@ -223,7 +235,9 @@ class Engine:
             step = CKPT.latest_step(ckpt_dir)
             if step is not None:
                 resumed_from = int(step)
-                state, extra = CKPT.restore(ckpt_dir, step, state)
+                state, extra = CKPT.restore(
+                    ckpt_dir, step, state,
+                    shardings=_shardings(self.backend, state))
                 _refuse_backend(extra, ckpt_dir, self.backend_name,
                                 " — rerun with the original backend or a "
                                 "fresh ckpt_dir")
@@ -359,7 +373,7 @@ class PackedEngine:
         self.n_slots = off
         self.batch_spec = dataclasses.replace(specs[0], n_repeats=self.n_slots)
         self.backend_name = resolve_backend(self.batch_spec, backend,
-                                            self.device)
+                                            self.device, self.options.mesh)
         self.faults = FLT.resolve_faults(self.options.faults)
         # a single 1-repeat job has no stack axis to pack: delegate to the
         # plain Engine (same result layout, zero packing overhead)
@@ -448,7 +462,9 @@ class PackedEngine:
             step = CKPT.latest_step(ckpt_dir)
             if step is not None:
                 resumed_from = int(step)
-                state, extra = CKPT.restore(ckpt_dir, step, state)
+                state, extra = CKPT.restore(
+                    ckpt_dir, step, state,
+                    shardings=_shardings(self.backend, state))
                 _refuse_backend(extra, ckpt_dir, self.backend_name, "")
                 ck_seeds = [int(s) for s in extra.get("seeds", [])]
                 if ck_seeds and ck_seeds != [int(s) for s in self.seeds]:

@@ -4,17 +4,22 @@
     ga.solve(spec, backend="fused-islands", options=opts)
 
 Knobs:
-  * device — the torch device the run lives on.  Defaults to ``"cuda"``:
-    the port runs on the card unless the caller asks for the CPU.  When
-    CUDA is unavailable and the CPU was not asked for, building an engine
-    raises instead of carrying on on the CPU.
+  * device — the torch device the run lives on.  Unset (None) it is
+    ``"cuda"``: the port runs on the card unless the caller asks for the
+    CPU.  When CUDA is unavailable and the CPU was not asked for, building
+    an engine raises instead of carrying on on the CPU.
+  * mesh — a `repro_torch.launch.mesh.Mesh` the island axis shards over
+    (None = one device).  The run's device is then the mesh's first
+    device, where its state lives between segments: `device` must be
+    unset or that device.
   * cost_table — the measured tier of the island-ring epoch planner
     (`repro_torch.autotune.resolve_table`): None discovers the ambient
     per-host table, False disables measured planning (the pure
     heuristic), a path or a `CostTable` pins one.
   * plan_override — force an island-ring epoch mode ("gridded",
-    "resident", "resident-free", "streamed"; a dict with a "mode" key is
-    read the same way); a mode the spec cannot run raises with the
+    "resident", "resident-sharded", "resident-free", "streamed"; a dict
+    with a "mode" key is read the same way); a mode the spec cannot run
+    (resident-sharded without a mesh, resident with one) raises with the
     candidates it can.
   * stream_tile_islands — pin the streamed mode's island tile (islands one
     thread block walks in turn; must divide the island count, and on a
@@ -48,8 +53,8 @@ from typing import Any, Optional
 
 import torch
 
-# the JAX package's modes less "resident-sharded", which needs a mesh
-PLAN_MODES = ("gridded", "resident", "resident-free", "streamed")
+PLAN_MODES = ("gridded", "resident", "resident-sharded", "resident-free",
+              "streamed")
 SEL_LANES = ("onehot", "gather", "auto")
 
 
@@ -63,7 +68,8 @@ def plan_mode(plan_override: Any) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    device: str = "cuda"
+    device: Optional[str] = None
+    mesh: Any = None
     cost_table: Any = None
     plan_override: Any = None
     stream_tile_islands: Optional[int] = None
@@ -72,10 +78,17 @@ class EngineOptions:
     faults: Any = None
 
     def __post_init__(self):
-        dev = torch.device(self.device)
+        dev = torch.device(self.device or "cuda")
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be a CUDA device or 'cpu', "
                              f"got {self.device!r}")
+        if self.mesh is not None:
+            first = self.mesh.first_device
+            if self.device is not None and _index0(dev) != _index0(first):
+                raise ValueError(
+                    f"EngineOptions(device={self.device!r}) is not the "
+                    f"mesh's first device {first}, where a sharded run "
+                    "keeps its state: leave device unset")
         if (self.plan_override is not None
                 and plan_mode(self.plan_override) not in PLAN_MODES):
             raise ValueError(
@@ -92,11 +105,13 @@ class EngineOptions:
                              f"got {self.fitness_workers!r}")
 
     def torch_device(self) -> torch.device:
-        """The run's device; raises when it is CUDA and no card is there."""
-        dev = torch.device(self.device)
+        """The run's device (the mesh's first device on a mesh); raises
+        when it is CUDA and no card is there."""
+        dev = (self.mesh.first_device if self.mesh is not None
+               else torch.device(self.device or "cuda"))
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                f"EngineOptions(device={self.device!r}) needs a CUDA device "
+                f"EngineOptions(device={str(dev)!r}) needs a CUDA device "
                 "and torch.cuda.is_available() is False; pass "
                 "EngineOptions(device='cpu') to run on the CPU")
         return dev
@@ -110,7 +125,7 @@ class EngineOptions:
             "engine options",
             "The JAX package's --vmem-budget has no Hopper counterpart (a "
             "card's limits are its own).")
-        ap.add_argument("--device", default="cuda",
+        ap.add_argument("--device", default=None,
                         help="torch device the jobs run on: 'cuda' (the "
                              "default; raises without a card) or 'cpu'")
         ap.add_argument("--cost-table", default=None, metavar="PATH",
@@ -139,15 +154,16 @@ class EngineOptions:
                              "REPRO_GA_FAULTS env; default: env-armed)")
 
     @classmethod
-    def from_args(cls, args) -> "EngineOptions":
-        """Build options from parsed CLI args."""
+    def from_args(cls, args, *, mesh=None) -> "EngineOptions":
+        """Build options from parsed CLI args (+ an already-built mesh)."""
         ct = getattr(args, "cost_table", None)
         if isinstance(ct, str) and ct.lower() in ("off", "none", "0"):
             ct = False
         flt = getattr(args, "faults", None)
         if isinstance(flt, str) and flt.lower() in ("off", "none", "0"):
             flt = False
-        return cls(device=getattr(args, "device", "cuda"), cost_table=ct,
+        return cls(device=getattr(args, "device", None), mesh=mesh,
+                   cost_table=ct,
                    plan_override=getattr(args, "plan_override", None),
                    stream_tile_islands=getattr(args, "stream_tile_islands",
                                                None),
@@ -156,12 +172,25 @@ class EngineOptions:
                    faults=flt)
 
 
-def resolve_options(options: Optional[EngineOptions] = None
-                    ) -> EngineOptions:
-    """The options an entry point runs with: the given ones, or defaults."""
+def _index0(dev: torch.device) -> torch.device:
+    """`dev` with a CUDA device's missing index read as card 0."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", 0)
+    return dev
+
+
+def resolve_options(options: Optional[EngineOptions] = None, *,
+                    mesh=None) -> EngineOptions:
+    """The options an entry point runs with: the given ones, or defaults
+    holding a constructor's `mesh=`.  With `options=`, a `mesh=` as well
+    is rejected, as in the JAX package: one source of truth a knob."""
     if options is None:
-        return EngineOptions()
+        return EngineOptions(mesh=mesh)
     if not isinstance(options, EngineOptions):
         raise TypeError(f"options must be ga.EngineOptions, "
                         f"got {type(options).__name__}")
+    if mesh is not None:
+        raise ValueError(
+            "got both options= and legacy kwarg(s) ['mesh']: move them "
+            "into EngineOptions (dataclasses.replace(options, ...))")
     return options

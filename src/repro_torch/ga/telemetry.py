@@ -4,7 +4,8 @@
     (mode, provenance, fallback reason, launch fold shape, streamed tile,
     the shared memory one block of the plan takes);
   * `topology: TopologyInfo` — executor × topology names, the island
-    count, and the launches and migrations the run made;
+    count, the mesh shards it spans, and the launches and migrations the
+    run made;
   * `per_repeat: ReplicaStats | None` — per-replica best/trajectory arrays
     when the run stacked `n_repeats` replicas.
 
@@ -13,7 +14,7 @@
 The fields are the JAX package's that the port's topologies fill, under
 the same names, so a consumer reads both packages the same way; the one
 byte field is `smem_estimate_bytes` where the JAX package has its VMEM
-estimate.  Shard counters come with the mesh slice that fills them.
+estimate.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ TELEMETRY_VERSION = 1
 class PlanInfo:
     """The epoch-plan decision a segment ran under.
 
-    mode: "gridded" | "resident" | "resident-free" | "streamed" | "-" (no
-    plan: single topology).  source: "heuristic" | "measured" | "forced" |
+    mode: "gridded" | "resident" | "resident-sharded" | "resident-free" |
+    "streamed" | "-" (no plan: single topology).  source: "heuristic" | "measured" | "forced" |
     "-".
     fallback carries the Hopper limit that refused the resident shape (set
     for the gridded fallback and for the streamed lane, which exists
@@ -69,6 +70,8 @@ class TopologyInfo:
     executor: str = "-"
     topology: str = "-"
     n_islands: int = 1
+    n_shards: int = 1          # mesh shards the island axis spans
+    sharded: bool = False      # the run had a mesh (even of one shard)
     launches: int = 0          # runner calls (kernel launches on single)
     migrations: int = 0
     # generations represented by ONE trajectory sample (resident/streamed

@@ -18,9 +18,11 @@
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/ga_step.cu``
 (built on first use by `repro_torch.kernels.build`) and counts the launch
-in ``LAUNCHES``; on a CPU tensor it runs its plain version, the same
-function in plain PyTorch built from the port's `core.ga` operators, the
-program's `stage` and `core.islands`' migration rule set.  There is no
+in ``LAUNCHES`` (K2's boundary form and K3's one-interval form, which only
+a mesh's engine path runs, also in ``FORM_LAUNCHES``); on a CPU tensor it
+runs its plain version, the same function in plain PyTorch built from the
+port's `core.ga` operators, the program's `stage` and `core.islands`'
+migration rule set.  There is no
 fallback between the two: a call the kernel cannot take raises, on either
 device, so the CPU path accepts exactly what the card does.
 
@@ -70,6 +72,10 @@ from repro_torch.core.ga import GAConfig, ONEHOT_MAX_N
 # launches of each kernel made by its wrapper (plain-version calls excluded)
 LAUNCHES: Dict[str, int] = {"ga_generation": 0, "ga_epoch": 0,
                             "ga_streamed_epoch": 0}
+# of those, the launches of the two forms only a mesh runs: K2's boundary
+# form and K3's one interval without the ring inside
+FORM_LAUNCHES: Dict[str, int] = {"ga_epoch:boundary": 0,
+                                 "ga_streamed_epoch:one-interval": 0}
 
 SMEM_LIMIT = 232448            # bytes of shared memory a Hopper block can use
 # the kernel's own copy of that limit (kSmemLimit), which decides where the
@@ -83,8 +89,9 @@ PROBLEM_IDS = {"F1": 0, "F2": 1, "F3": 2, "sphere": 3, "rastrigin": 4,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _block_bytes(n: int, v: int, p: int, extra: int) -> int:
@@ -404,13 +411,17 @@ def streamed_tile_reason(cfg: GAConfig, groups: int, islands: int,
 def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
                           migration: str, gens_per_epoch: int,
                           migrate_every: int, groups: int = 1,
-                          device=None) -> list:
+                          device=None, sharded: bool = False) -> list:
     """The launch shapes an island-ring spec can run on Hopper, ordered so
     candidates[0] is the heuristic choice.  The structure and the order are
     the JAX package's `epoch_mode_candidates` (they decide
     `gens_per_launch`, and so the trajectory's sample count); only the
     feasibility test is this card's (`resident_fit_reason`,
     `streamed_tile_islands` for `groups` replica groups on `device`).
+    `i_local` is the islands of one shard; `sharded` (a mesh) turns the
+    resident mode into resident-sharded, one interval a launch with the
+    boundary elite crossing shards between launches, and offers no
+    resident-free.
 
     Each candidate is a plan dict: {"mode", "lane", "epochs_per_launch",
     "gens_per_launch"} (+ "fallback", the limit that refused the resident
@@ -433,10 +444,15 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
                      "gens_per_launch": k * migrate_every,
                      "tile_islands": tile, "fallback": reason},
                     dict(gridded, fallback=reason)]
+        if sharded:
+            return [{"mode": "resident-sharded", "lane": cfg.sel_lane,
+                     "epochs_per_launch": 1,
+                     "gens_per_launch": migrate_every}, gridded]
         return [{"mode": "resident", "lane": cfg.sel_lane,
                  "epochs_per_launch": k,
                  "gens_per_launch": k * migrate_every}, gridded]
-    if migration == "none" and gens_per_epoch > migrate_every:
+    if (migration == "none" and gens_per_epoch > migrate_every
+            and not sharded):
         # no ring: gridded stays the heuristic; resident-free (or, past the
         # block, a streamed tile) is offered for plan_override to pick
         reason = resident_fit_reason(cfg, i_local, ring=False)
@@ -602,6 +618,8 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             int(boundary), stream)
     _check_launch(err, "ga_epoch")
     LAUNCHES["ga_epoch"] += 1
+    if boundary:
+        FORM_LAUNCHES["ga_epoch:boundary"] += 1
     return tuple(outs) + (y, by, bx) + ((send, w0) if boundary else ())
 
 
@@ -721,6 +739,8 @@ def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             -(-g_grid // waves), stream)
     _check_launch(err, "ga_streamed_epoch")
     LAUNCHES["ga_streamed_epoch"] += waves
+    if not splice:
+        FORM_LAUNCHES["ga_streamed_epoch:one-interval"] += 1
     if splice:
         return tuple(outs) + (y, by, bx)
     return tuple(outs) + (y, by[0], bx[0]) + ((ex, wi) if migrate else ())

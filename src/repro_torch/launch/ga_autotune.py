@@ -13,9 +13,9 @@
         --out /tmp/cpu_table.json
 
 For every (problem, gens_per_epoch, migration) shape this times each
-feasible epoch mode — gridded, resident, resident-free (migration=none),
-streamed (past 8 islands, where the resident epoch does not fit the card)
-— by forcing it with `plan_override` and replaying segments until the
+feasible epoch mode — gridded, resident, resident-sharded (with --mesh),
+resident-free (migration=none), streamed (past 8 islands a shard, where
+the resident epoch does not fit the card) — by forcing it with `plan_override` and replaying segments until the
 timing is stable.  The resulting `repro_torch.autotune.CostTable` is what
 `Engine(..., options=EngineOptions(cost_table=...))`, the serving
 scheduler and `ga_run --cost-table` consume: among the feasible modes the
@@ -26,8 +26,8 @@ in this environment discovers it; `--merge` folds the new points into an
 existing table instead of replacing it.
 
 The port of the JAX package's `repro.launch.ga_autotune`, with the same
-grid and flags less `--mesh`; `--device` picks the card (the default) or
-the CPU.
+grid and flags; `--device` picks the card (the default) or the CPU, and
+`--mesh` the devices of that kind the sweep shards over.
 """
 
 from __future__ import annotations
@@ -67,6 +67,9 @@ def main(argv=None):
                     help="which migration regimes to cover (none adds the "
                          "resident-free mode to the sweep)")
     ap.add_argument("--backend", default="fused-islands")
+    ap.add_argument("--mesh", default=None,
+                    help="also measure sharded plans: 'auto', '4', '2x4', "
+                         "... (devices of --device's kind)")
     ap.add_argument("--reps", type=int, default=8,
                     help="max replay repetitions per candidate")
     ap.add_argument("--cov", type=float, default=0.25,
@@ -83,6 +86,7 @@ def main(argv=None):
 
     from repro_torch.autotune import (CostTable, default_table_path,
                                       host_fingerprint, sweep)
+    from repro_torch.launch.mesh import mesh_from_args
 
     problems = [p for p in args.problems.split(",") if p]
     gpes = [int(g) for g in args.gens_per_epoch.split(",")]
@@ -94,6 +98,8 @@ def main(argv=None):
                         gens_per_epoch=gpes, migrations=migrations,
                         seed=args.seed)
 
+    mesh = mesh_from_args(args, ap)
+
     out = args.out or default_table_path()
     table = None
     if args.merge:
@@ -103,9 +109,9 @@ def main(argv=None):
     if table is None:
         table = CostTable(host=host_fingerprint())
 
-    options = EngineOptions.from_args(args)
+    options = EngineOptions.from_args(args, mesh=mesh)
     print(f"sweeping {len(specs)} spec(s) x feasible modes "
-          f"(backend={args.backend}, device={options.device})")
+          f"(backend={args.backend}, device={options.torch_device()})")
     sweep(specs, backend=args.backend, options=options, table=table,
           max_reps=args.reps, cov_threshold=args.cov, log=print)
     table.save(out)

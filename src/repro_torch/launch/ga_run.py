@@ -11,6 +11,8 @@
     PYTHONPATH=src python -m repro_torch.launch.ga_run --problem F3 \
         --backend eager --device cpu
     PYTHONPATH=src python -m repro_torch.launch.ga_run --problem F3 \
+        --islands 8 --backend fused-islands --mesh auto --gens-per-epoch 16
+    PYTHONPATH=src python -m repro_torch.launch.ga_run --problem F3 \
         --chunk 25 --metrics-port 9100   # scrape localhost:9100/metrics
 
 `--problem` takes any registered problem name (repro_torch.core.fitness
@@ -26,9 +28,12 @@ planner a measured table (`repro_torch.launch.ga_autotune` writes one);
 endpoint while the run streams; `--kernel` is kept as a deprecated alias
 for `--backend fused`.
 
-The port of the JAX package's `repro.launch.ga_run`, with the same flags
-less `--mesh` (the port runs the island ring on one device); `--device`
-picks the card (the default) or the CPU.
+`--mesh` shards the island axis over devices of `--device`'s kind
+(repro_torch.launch.mesh.parse_mesh), the ring crossing shards through
+the boundary elites, bit-identical to the run on one device.
+
+The port of the JAX package's `repro.launch.ga_run`, with the same flags;
+`--device` picks the card (the default) or the CPU.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from repro_torch.launch.mesh import MESH_HELP, mesh_from_args
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", default="F3",
                     help="registered problem, optionally 'name:V' "
@@ -68,6 +75,7 @@ def main(argv=None):
     ap.add_argument("--migrate-every", type=int, default=16)
     ap.add_argument("--repeats", type=int, default=1,
                     help="independent replicas stacked into one run")
+    ap.add_argument("--mesh", default=None, help=MESH_HELP)
     ap.add_argument("--gens-per-epoch", type=int, default=1,
                     help=">1 folds generations inside one kernel launch "
                          "(fused executors; amortizes launch overhead); "
@@ -113,7 +121,7 @@ def main(argv=None):
                      topology=None if args.topology == "auto"
                      else args.topology,
                      migration=args.migration)
-    options = EngineOptions.from_args(args)
+    options = EngineOptions.from_args(args, mesh=mesh_from_args(args, ap))
 
     server = None
     if args.metrics_port is not None:
@@ -166,6 +174,10 @@ def main(argv=None):
         lane = f", lane={tele.plan.lane}" if tele.plan.lane != "-" else ""
         print(f"epoch plan: {tele.plan.mode} "
               f"({tele.plan.source}{lane}{tile})")
+    if tele.topology.sharded:
+        shards = max(1, tele.topology.n_shards)
+        print(f"shards: {shards} "
+              f"({spec.n_islands // shards} island(s) each)")
     if tele.topology.migrations:
         print(f"migrations: {tele.topology.migrations}")
     print(f"best fitness: {out.best_fitness:.4f}")

@@ -30,10 +30,11 @@ distinct seeds (and, for K >= 3, one higher-priority rastrigin job that
 preempts them) without needing a file.
 
 The port of the JAX package's `repro.launch.ga_serve`, with the same
-flags less `--mesh` (the port runs the island ring on one device) and
-`--vmem-budget` (see `EngineOptions.add_cli_args`); `--device` picks the
-card (the default) or the CPU, and `--cost-table` a measured table
-(`python -m repro_torch.launch.ga_autotune` writes one).
+flags less `--vmem-budget` (see `EngineOptions.add_cli_args`); `--device`
+picks the card (the default) or the CPU, `--mesh` shards the island axis
+of every job over devices of that kind (`repro_torch.launch.mesh`), and
+`--cost-table` a measured table (`python -m
+repro_torch.launch.ga_autotune` writes one).
 """
 
 from __future__ import annotations
@@ -65,6 +66,8 @@ def _demo_jobs(k: int):
 
 
 def main():
+    from repro_torch.launch.mesh import MESH_HELP, mesh_from_args
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--jobs", default=None,
                     help="JSON file: list of GASpec-field objects "
@@ -73,6 +76,7 @@ def main():
                     help="submit K built-in demo jobs instead of --jobs")
     ap.add_argument("--backend", default="auto",
                     help="default backend for jobs that don't name one")
+    ap.add_argument("--mesh", default=None, help=MESH_HELP)
     ap.add_argument("--max-pack", type=int, default=8,
                     help="max replica slots per packed launch")
     ap.add_argument("--chunk", type=int, default=None,
@@ -112,7 +116,7 @@ def main():
     if not job_dicts and not args.recover:
         ap.error("no jobs to run")
 
-    options = EngineOptions.from_args(args)
+    options = EngineOptions.from_args(args, mesh=mesh_from_args(args, ap))
 
     from repro_torch.serve.scheduler import GAScheduler
     if args.recover and args.ckpt_root is None:

@@ -8,8 +8,8 @@ serves; `repro_torch.serve.scheduler.GAScheduler` feeds the same registry
 from its worker thread.
 
 The GA half of the JAX package's `repro.serve.engine`, under the same
-names and dict keys.  The island axis spans one device here, so a job's
-`shards` stays 1 until the port shards the ring over several cards.
+names and dict keys.  A job's `shards` is the count of mesh shards its
+island axis spans (`RunTelemetry.topology.n_shards`; 1 without a mesh).
 """
 
 from __future__ import annotations
@@ -193,6 +193,7 @@ class GAMetricsRegistry:
             rt = tele.get("telemetry")
             if rt is not None:
                 job.islands = rt.topology.n_islands
+                job.shards = rt.topology.n_shards
                 if rt.plan.mode != "-":
                     job.epoch_mode = rt.plan.mode
                     job.plan_source = rt.plan.source

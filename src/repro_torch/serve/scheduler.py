@@ -1,11 +1,12 @@
-"""GA-as-a-service: async multi-tenant job scheduler over one device.
+"""GA-as-a-service: async multi-tenant job scheduler over one device mesh.
 
 `run_ga_job` made the engine a telemetered *single-job* service; this module
-makes it multi-tenant.  A `GAScheduler` owns the device and a worker
-thread; clients `submit(spec)` and get a job id back immediately:
+makes it multi-tenant.  A `GAScheduler` owns the device (or the mesh) and a
+worker thread; clients `submit(spec)` and get a job id back immediately:
 
     sched = GAScheduler()                     # the card; or options=
-                                              # EngineOptions(device="cpu")
+                                              # EngineOptions(device="cpu"),
+                                              # or mesh=parse_mesh("auto")
     a = sched.submit(spec_a)                  # QUEUED
     b = sched.submit(spec_b)                  # shape-compatible with a
     hot = sched.submit(urgent, priority=10)   # preempts the running pack
@@ -80,10 +81,11 @@ registry by `tests/test_torch_scheduler.py` and `chip_smoke.py`):
   recovers here too.
 
 The port of the JAX package's `repro.serve.scheduler`, every mechanism and
-counter kept, less what the port has no engine for yet: no `mesh=` (the
-ring lives on one device).  The device comes from `options.device`: a
-scheduler for the card raises at construction on a host without one,
-rather than hand its worker an error it would retry.
+counter kept, `mesh=` included: every engine the worker builds shards its
+island axis over that mesh (`ga.EngineOptions.mesh`).  The device comes
+from `options.device`, or is the mesh's first device: a scheduler for the
+card raises at construction on a host without one, rather than hand its
+worker an error it would retry.
 """
 
 from __future__ import annotations
@@ -170,9 +172,11 @@ class _Unit:
 
 class GAScheduler:
     """Async multi-tenant GA job scheduler (one worker thread owns the
-    device).
+    device, or the mesh).
 
-    Parameters: `backend` is the default backend request; `max_pack` caps
+    Parameters: `mesh` is handed to every engine build (it may also ride
+    in `options.mesh`, but not in both); `backend` is the default backend
+    request; `max_pack` caps
     slots per launch; `chunk_generations` sets the telemetry/preemption
     granularity; `ckpt_root` is where pack checkpoints and the journal
     live (a temp dir by default); `job_ttl_s` evicts DONE/FAILED jobs that
@@ -185,7 +189,8 @@ class GAScheduler:
     launch.
     """
 
-    def __init__(self, *, registry: Optional[GAMetricsRegistry] = None,
+    def __init__(self, *, mesh=None,
+                 registry: Optional[GAMetricsRegistry] = None,
                  backend: str = "auto", max_pack: int = 8,
                  chunk_generations: Optional[int] = None,
                  ckpt_root: Optional[str] = None,
@@ -197,7 +202,8 @@ class GAScheduler:
         from repro_torch.autotune import resolve_table   # import-light
         from repro_torch.ga.options import resolve_options
 
-        self.options = resolve_options(options)
+        self.options = resolve_options(options, mesh=mesh)
+        self.mesh = self.options.mesh
         if cost_table is not None:
             if self.options.cost_table is not None:
                 raise ValueError(

@@ -375,7 +375,7 @@ def test_plan_override_forces_and_validates():
     with pytest.raises(ValueError, match="not feasible"):
         _topo(spec, cost_table=False, plan_override="streamed")
     with pytest.raises(ValueError, match="plan_override"):
-        _opts(plan_override="resident-sharded")
+        _topo(spec, cost_table=False, plan_override="resident-sharded")
 
 
 def test_segments_replay_from_one_state():

@@ -657,3 +657,75 @@ def test_eager_on_card_equals_reference_on_card(cuda_device, n_repeats,
     _assert_same_solve(eager, ref)
     scale = np.maximum(np.abs(ref.traj_mean), np.abs(ref.traj_best))
     assert np.all(np.abs(eager.traj_mean - ref.traj_mean) <= 1e-6 * scale)
+
+
+# ---------------------------------------------------------------------------
+# The island ring on a mesh of logical shards of the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,mode,form", [
+    (dict(), "resident-sharded", "ga_epoch:boundary"),
+    (dict(n_islands=18, n_repeats=2), "streamed",
+     "ga_streamed_epoch:one-interval"),
+    (dict(plan_override="gridded"), "gridded", None)])
+def test_sharded_plans_on_card_match_plain(cuda_device, kw, mode, form):
+    """A 2-shard mesh of the card: each sharded plan launches its kernel
+    form a shard and interval, and equals the same run on a 2-shard mesh of
+    the CPU (the kernels' plain versions) and `islands` on the card."""
+    from repro_torch.launch.mesh import Mesh
+    kw = dict(kw)
+    override = kw.pop("plan_override", None)
+    spec = ga.GASpec(**dict(dict(problem="F3", n=64, bits_per_var=10,
+                                 mode="arith", mutation_rate=0.05, seed=11,
+                                 generations=30, n_islands=8,
+                                 migrate_every=5, gens_per_epoch=10), **kw))
+    card = Mesh([torch.device("cuda", 0)] * 2, ("islands",))
+    cpu = Mesh([torch.device("cpu")] * 2, ("islands",))
+    forms = dict(K.FORM_LAUNCHES)
+    got = ga.solve(spec, backend="fused-islands", options=ga.EngineOptions(
+        mesh=card, plan_override=override))
+    torch.cuda.synchronize()
+    plain = ga.solve(spec, backend="fused-islands", options=ga.EngineOptions(
+        mesh=cpu, plan_override=override))
+    ref = ga.solve(spec, backend="islands")
+    assert got.telemetry.plan.mode == plain.telemetry.plan.mode == mode
+    assert got.state.x.device.type == "cuda"
+    assert got.telemetry.topology.n_shards == 2
+    if form is not None:
+        assert K.FORM_LAUNCHES[form] > forms[form]
+    _assert_same_solve(got, plain)
+    _assert_same_solve(got, ref, traj=mode != "streamed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,mode", [
+    (dict(), "resident-sharded"), (dict(n_islands=36), "streamed"),
+    (dict(plan_override="gridded"), "gridded")])
+def test_sharded_plans_across_cards_match_one_card(cuda_device, kw, mode):
+    """A mesh of distinct cards (every card the host has, at most 4): the
+    shards' launches run on their own cards and the elites, the split and
+    the gather cross between cards; each plan equals the same run on one
+    card."""
+    from repro_torch.launch.mesh import parse_mesh
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    kw = dict(kw)
+    override = kw.pop("plan_override", None)
+    spec = ga.GASpec(**dict(dict(problem="F3", n=64, bits_per_var=10,
+                                 mode="arith", mutation_rate=0.05, seed=11,
+                                 generations=30, n_islands=4 * n,
+                                 migrate_every=5, gens_per_epoch=10,
+                                 n_repeats=2), **kw))
+    mesh = parse_mesh(str(n))
+    assert len({d.index for d in mesh.devices.flat}) == n
+    got = ga.solve(spec, backend="fused-islands", options=ga.EngineOptions(
+        mesh=mesh, plan_override=override))
+    one = ga.solve(spec, backend="fused-islands",
+                   options=ga.EngineOptions(plan_override=override))
+    assert got.telemetry.plan.mode == mode
+    assert got.telemetry.topology.n_shards == n
+    assert got.state.x.device == mesh.first_device
+    _assert_same_solve(got, one, traj=mode != "resident-sharded")

@@ -1,5 +1,6 @@
-"""The port stands alone: no module under src/repro_torch/, and not
-chip_smoke.py, imports `jax` or anything of the JAX package `repro`."""
+"""The port stands alone: no module under src/repro_torch/, no
+scripts/torch_*.py and not chip_smoke.py imports `jax` or anything of the
+JAX package `repro`."""
 
 import ast
 from pathlib import Path
@@ -12,6 +13,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
     smoke = ROOT / "chip_smoke.py"
     if smoke.exists():
         files.append(smoke)
@@ -52,6 +54,10 @@ def test_port_files_found():
             "src/repro_torch/core/evolve.py",
             "src/repro_torch/launch/ga_run.py",
             "src/repro_torch/launch/ga_autotune.py"} <= rel
+    # and the mesh with its scheduler and chaos smokes
+    assert {"src/repro_torch/launch/mesh.py",
+            "scripts/torch_scheduler_smoke.py",
+            "scripts/torch_chaos_smoke.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

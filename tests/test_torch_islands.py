@@ -344,7 +344,9 @@ def test_plan_override_streamed_on_fitting_spec_errors():
     with pytest.raises(ValueError, match="not feasible"):
         _segment(_kw(), "islands", 5, plan_override="resident")
     with pytest.raises(ValueError, match="plan_override must be one of"):
-        ga.EngineOptions(device="cpu", plan_override="resident-sharded")
+        ga.EngineOptions(device="cpu", plan_override="sharded")
+    with pytest.raises(ValueError, match="resident-sharded needs a mesh"):
+        _segment(kw, "fused-islands", 5, plan_override="resident-sharded")
     seg = _segment(kw, "fused-islands", 5, plan_override={"mode": "gridded"})
     assert (seg.telemetry.plan.mode, seg.telemetry.plan.source) == \
         ("gridded", "forced")

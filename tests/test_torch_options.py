@@ -109,8 +109,11 @@ def test_cli_flags_build_the_options():
     assert default == ga.EngineOptions()
     assert ga.EngineOptions.from_args(
         ap.parse_args(["--faults", "off"])).faults is False
+    assert ga.EngineOptions.from_args(ap.parse_args(
+        ["--plan-override", "resident-sharded"])).plan_override == \
+        "resident-sharded"
     with pytest.raises(SystemExit):
-        ap.parse_args(["--plan-override", "resident-sharded"])
+        ap.parse_args(["--plan-override", "sharded"])
 
 
 def test_cost_table_and_fitness_workers_flags_as_in_jax():

@@ -717,6 +717,6 @@ def test_ga_serve_jobs_file_and_refusals(tmp_path):
     assert "deadline=600.0s" in out.stdout
     assert out.stdout.count("backend=reference") == 2
     for args in ((), ("--demo", "2", "--jobs", str(jobs)),
-                 ("--recover",), ("--demo", "2", "--mesh", "auto")):
+                 ("--recover",), ("--demo", "2", "--mesh", "2")):
         bad = _serve(*args, "--device", "cpu")
         assert bad.returncode == 2, (args, bad.stdout)
