@@ -155,8 +155,8 @@ def migrate_ring(states: G.GAState, y: torch.Tensor, *, minimize: bool
 # ---------------------------------------------------------------------------
 
 
-def ring_shift_sharded(xs: Sequence[torch.Tensor], mesh,
-                       axis_names: Sequence[str]) -> List[torch.Tensor]:
+def ring_shift_sharded(xs: Sequence[torch.Tensor], mesh=None,
+                       axis_names: Sequence[str] = ()) -> List[torch.Tensor]:
     """Send each shard's tensor to the next shard in row-major order over
     `axis_names`: shard j receives shard j-1's tensor (shard 0 the last
     one's), on its own device.
@@ -165,8 +165,10 @@ def ring_shift_sharded(xs: Sequence[torch.Tensor], mesh,
     `mesh.shard_devices(axis_names)`.  Over several axes this is one global
     ring over the raveled axis tuple, as the JAX package's `ppermute`
     cascade makes it; the devices behind the positions never enter the
-    order, so shards that share a device form the same ring."""
-    devices = mesh.shard_devices(axis_names)
+    order, so shards that share a device form the same ring.  Without a
+    mesh `xs` is one tensor, the whole ring, and comes back as it is."""
+    devices = ([x.device for x in xs[:1]] if mesh is None
+               else mesh.shard_devices(axis_names))
     if len(xs) != len(devices):
         raise ValueError(f"{len(xs)} tensors for {len(devices)} mesh shards")
     return [xs[j - 1].to(devices[j]) for j in range(len(xs))]
@@ -174,7 +176,7 @@ def ring_shift_sharded(xs: Sequence[torch.Tensor], mesh,
 
 def migrate_ring_sharded(states: Sequence[G.GAState],
                          ys: Sequence[torch.Tensor], *, minimize: bool,
-                         mesh, axis_names: Sequence[str]
+                         mesh=None, axis_names: Sequence[str] = ()
                          ) -> Tuple[List[G.GAState], List[torch.Tensor],
                                     List[torch.Tensor]]:
     """`migrate_ring` over an island axis split into per-shard blocks.
@@ -182,8 +184,9 @@ def migrate_ring_sharded(states: Sequence[G.GAState],
     states/ys hold each shard's [..., I_local, ...] block in the order of
     `ring_shift_sharded`.  Locally the elites shift down by one island;
     the last local island's elite crosses to the next shard and lands on
-    its island 0 — globally the roll by one of `migrate_ring`, bit for bit.
-    Returns (new_states, elite_x, elite_y), each a list a shard."""
+    its island 0 — globally the roll by one of `migrate_ring`, bit for bit
+    (without a mesh, one state: `migrate_ring` itself).  Returns
+    (new_states, elite_x, elite_y), each a list a shard."""
     elites = [best_of(s, y, minimize=minimize) for s, y in zip(states, ys)]
     recv = ring_shift_sharded([ex[..., -1, :] for ex, _ in elites], mesh,
                               axis_names)

@@ -372,11 +372,6 @@ class Topology:
     def init_packed(self, seeds):
         raise NotImplementedError
 
-    def shardings(self, state):
-        """`ckpt.checkpoint.restore`'s placement of each leaf of `state`
-        (None: the leaves' own devices)."""
-        return None
-
     def segment(self, state, gens: int) -> Segment:
         raise NotImplementedError
 
@@ -653,18 +648,13 @@ class IslandRingTopology(Topology):
             return _islands_seeded(self.icfg, seeds[0], self.device)
         return _stack_island_replicas_seeded(self.icfg, seeds, self.device)
 
-    def shardings(self, state):
-        """On a mesh, each leaf's island axis over the mesh's shards: a
-        restore may come from another mesh's checkpoint, or from none."""
-        if self.mesh is None:
-            return None
-        place = (self.mesh, self._island_dim(), self._mesh_axes)
-        return type(state)(*(place for _ in state))
-
-    # ---- runners: state -> (state', best_y, best_x, traj_mean) ----------
-    # best_* hold each island's best of every migration interval the launch
-    # ran ([K, R?, I]); traj_mean the final fitness means ([R?, I]).  The
-    # fused runners see the stack as [G, I, ...] replica groups.
+    # ---- runners: shards -> (shards', best_y, best_x, traj_mean) --------
+    # Each takes and returns a list of one state a shard ([R?, I_local, ...]
+    # on the shard's device; without a mesh, the one whole state), with a
+    # list a shard of: each island's best of every migration interval the
+    # launch ran ([K, R?, I_local]) and the final fitness means
+    # ([R?, I_local]).  The fused runners see a stack as [G, I, ...] replica
+    # groups.
 
     def _grouped(self, states: G.GAState) -> G.GAState:
         if self.spec.n_repeats > 1:
@@ -685,22 +675,6 @@ class IslandRingTopology(Topology):
         return (states, by.reshape((1,) + lead),
                 bx.reshape((1,) + lead + (-1,)), tm.reshape(lead + (-1,)))
 
-    def _gridded_runner(self):
-        """One epoch: an executor block of `migrate_every` generations over
-        the flattened [R * I] stack, then the ring on the final fitness."""
-        blk = self.executor.block(self.icfg.migrate_every)
-        fit, mini = self.executor.fit, self.spec.minimize
-        migrate = self.spec.migration == "ring"
-
-        def epoch(states):
-            states, by, bx, tm = self._gridded_block(blk, states)
-            if migrate:
-                states, _ex, _ey = ISL.migrate_ring(states, fit(states.x),
-                                                    minimize=mini)
-            return states, by, bx, tm
-
-        return epoch
-
     def _resident_runner(self, k: int, *, migrate: bool = True):
         """ONE K2 launch: k whole intervals with the ring inside the kernel,
         or (migrate=False, the resident-free mode) k generations — as whole
@@ -715,7 +689,8 @@ class IslandRingTopology(Topology):
             e, intervals = k, 1
         prog, sq = self.executor.program, self._ungrouped
 
-        def launch(states):
+        def launch(shards):
+            (states,) = shards
             g = self._grouped(states)
             x, sel, cross, mut, y, by, bx = K.ga_epoch_kernel(
                 g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
@@ -723,8 +698,8 @@ class IslandRingTopology(Topology):
                 migrate=migrate)
             state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
                               states.k + e * intervals)
-            return (state, sq(by, 1), sq(bx, 1),
-                    sq(torch.mean(y, dim=-1)))
+            return ([state], [sq(by, 1)], [sq(bx, 1)],
+                    [sq(torch.mean(y, dim=-1))])
 
         return launch
 
@@ -735,7 +710,8 @@ class IslandRingTopology(Topology):
         migrate = self.spec.migration == "ring"
         prog, sq = self.executor.program, self._ungrouped
 
-        def launch(states):
+        def launch(shards):
+            (states,) = shards
             g = self._grouped(states)
             x, sel, cross, mut, y, by, bx = K.ga_streamed_epoch_kernel(
                 g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
@@ -743,13 +719,12 @@ class IslandRingTopology(Topology):
                 migrate=migrate, intervals=k, splice=True)
             state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
                               states.k + k * e)
-            return (state, sq(by, 1), sq(bx, 1), sq(torch.mean(y, dim=-1)))
+            return ([state], [sq(by, 1)], [sq(bx, 1)],
+                    [sq(torch.mean(y, dim=-1))])
 
         return launch
 
-    # ---- on a mesh: runners over the list of shard states -----------------
-    # Each takes and returns one state a shard ([R?, I_local, ...] on the
-    # shard's device) with each shard's best_*/traj_mean as above.
+    # ---- on a mesh: the split and the gather around a segment --------------
 
     def _island_dim(self) -> int:
         return 0 if self.spec.n_repeats == 1 else 1
@@ -764,6 +739,8 @@ class IslandRingTopology(Topology):
 
     def _gather(self, parts: list, dim: int) -> torch.Tensor:
         """One tensor on the run's device from a tensor a shard."""
+        if len(parts) == 1:
+            return parts[0].to(self.device)
         return torch.cat([t.to(self.device) for t in parts], dim=dim)
 
     def _gather_state(self, shards: list) -> G.GAState:
@@ -772,9 +749,11 @@ class IslandRingTopology(Topology):
         return G.GAState(*(self._gather(list(leaf), a)
                            for leaf in zip(*shards)))
 
-    def _gridded_sharded_runner(self):
-        """One epoch: the executor block a shard, then
-        `islands.migrate_ring_sharded` on the migration fitness."""
+    def _gridded_runner(self):
+        """One epoch: an executor block of `migrate_every` generations a
+        shard over its flattened [R * I_local] stack, then
+        `islands.migrate_ring_sharded` on the migration fitness (without a
+        mesh, `migrate_ring` bit for bit)."""
         blk = self.executor.block(self.icfg.migrate_every)
         fit, mini = self.executor.fit, self.spec.minimize
         migrate = self.spec.migration == "ring"
@@ -895,9 +874,8 @@ class IslandRingTopology(Topology):
                     lambda k=k: build(k), "streamed", k,
                     self.plan["tile_islands"]))
             else:
-                sched.append(self._cached_runner(
-                    self._gridded_sharded_runner if sharded
-                    else self._gridded_runner, "gridded"))
+                sched.append(self._cached_runner(self._gridded_runner,
+                                                 "gridded"))
             left -= k
         return sched, e * per_launch
 
@@ -918,21 +896,14 @@ class IslandRingTopology(Topology):
         reduce = np.min if mini else np.max
         sched, unit = self._schedule(epochs)
         bys, bxs, tms = [], [], []
-        if self.mesh is None:
-            for runner in sched:
-                state, by, bx, tm = runner(state)
-                bys.append(by)
-                bxs.append(bx)
-                tms.append(tm)
-        else:
-            a = self._island_dim()
-            shards = self._split(state)
-            for runner in sched:
-                shards, by, bx, tm = runner(shards)
-                bys.append(self._gather(by, a + 1))
-                bxs.append(self._gather(bx, a + 1))
-                tms.append(self._gather(tm, a))
-            state = self._gather_state(shards)
+        a = self._island_dim()
+        shards = [state] if self.mesh is None else self._split(state)
+        for runner in sched:
+            shards, by, bx, tm = runner(shards)
+            bys.append(self._gather(by, a + 1))
+            bxs.append(self._gather(bx, a + 1))
+            tms.append(self._gather(tm, a))
+        state = shards[0] if self.mesh is None else self._gather_state(shards)
         # one read-back for the whole segment
         ends = np.cumsum([t.shape[0] for t in bys])
         by = torch.cat(bys).cpu().numpy().reshape(ends[-1], r_, -1)

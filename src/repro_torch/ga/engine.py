@@ -30,7 +30,7 @@ Each chunk persists the full backend-native GAState through
 `repro_torch.ckpt.checkpoint` in the JAX package's format, so a killed run
 resumes from the last chunk (`resume=True`, the default) in either
 package, and on any mesh the spec divides over (a step holds the state
-whole; `restore(shardings=)` places it as the engine's mesh wants it).
+whole, as the engine keeps it between segments).
 `PackedEngine` runs many shape-compatible jobs as the replica slots of
 one backend run, each bit-identical to its solo run, and
 `repack_checkpoint` slices a pack checkpoint down to some of its jobs.
@@ -142,12 +142,6 @@ def _refuse_backend(extra: Dict, ckpt_dir: str, backend: str,
             f"state layout{hint}")
 
 
-def _shardings(backend: Backend, state):
-    """Where a restore places each leaf of `state` (None: as `state`)."""
-    topo = getattr(backend, "topology", None)
-    return None if topo is None else topo.shardings(state)
-
-
 class Engine:
     """A spec bound to a backend on the options' device.  What it builds
     for the spec's shape comes from `ga.RUNNER_CACHE` (see
@@ -235,9 +229,7 @@ class Engine:
             step = CKPT.latest_step(ckpt_dir)
             if step is not None:
                 resumed_from = int(step)
-                state, extra = CKPT.restore(
-                    ckpt_dir, step, state,
-                    shardings=_shardings(self.backend, state))
+                state, extra = CKPT.restore(ckpt_dir, step, state)
                 _refuse_backend(extra, ckpt_dir, self.backend_name,
                                 " — rerun with the original backend or a "
                                 "fresh ckpt_dir")
@@ -462,9 +454,7 @@ class PackedEngine:
             step = CKPT.latest_step(ckpt_dir)
             if step is not None:
                 resumed_from = int(step)
-                state, extra = CKPT.restore(
-                    ckpt_dir, step, state,
-                    shardings=_shardings(self.backend, state))
+                state, extra = CKPT.restore(ckpt_dir, step, state)
                 _refuse_backend(extra, ckpt_dir, self.backend_name, "")
                 ck_seeds = [int(s) for s in extra.get("seeds", [])]
                 if ck_seeds and ck_seeds != [int(s) for s in self.seeds]:

@@ -740,7 +740,7 @@ def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
     _check_launch(err, "ga_streamed_epoch")
     LAUNCHES["ga_streamed_epoch"] += waves
     if not splice:
-        FORM_LAUNCHES["ga_streamed_epoch:one-interval"] += 1
+        FORM_LAUNCHES["ga_streamed_epoch:one-interval"] += waves
     if splice:
         return tuple(outs) + (y, by, bx)
     return tuple(outs) + (y, by[0], bx[0]) + ((ex, wi) if migrate else ())

@@ -586,7 +586,7 @@ def test_tied_islands_keep_the_islands_best_x_under_every_plan():
     eng = ga.Engine(ga.GASpec(**kw), "fused-islands", options=CPU)
     st, launch_best = eng.init_state(), None
     for runner in eng.backend.topology._schedule(8)[0]:
-        st, by, bx, _tm = runner(st)
+        (st,), (by,), (bx,), _tm = runner([st])
         fy, fx = by[0], bx[0]
         for t in range(1, by.shape[0]):
             fy, fx = TG.fold_best(fy, fx, by[t], bx[t], True)

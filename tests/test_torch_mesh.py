@@ -172,7 +172,7 @@ def test_shard_order_is_row_major_over_the_named_axes():
 
 @pytest.mark.parametrize("minimize", [True, False])
 @pytest.mark.parametrize("lead", [(), (2,)], ids=["solo", "replicas"])
-@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("mesh_name", MESHES + ["none"])
 def test_migrate_ring_sharded_matches_migrate_ring(mesh_name, lead,
                                                     minimize):
     rng = np.random.default_rng(5)
@@ -187,9 +187,10 @@ def test_migrate_ring_sharded_matches_migrate_ring(mesh_name, lead,
     yt = torch.from_numpy(y)
     whole, wex, wey = TISL.migrate_ring(state, yt, minimize=minimize)
 
-    mesh = _mesh(mesh_name)
-    axes = mesh.axis_names
-    s = mesh.size
+    # "none": no mesh, the whole stack as one shard
+    mesh = None if mesh_name == "none" else _mesh(mesh_name)
+    axes = () if mesh is None else mesh.axis_names
+    s = 1 if mesh is None else mesh.size
     a, il = len(lead), islands // s
     parts = [TG.GAState(*(t.narrow(a, j * il, il) for t in state))
              for j in range(s)]
