@@ -56,7 +56,9 @@ def _spec_from(obj: dict):
 
 
 def _demo_jobs(k: int):
-    base = dict(problem="F3", n=32, bits_per_var=10, generations=64)
+    # long enough (16 chunks of 16) that the later arrival finds the pack
+    # running on a loaded host too
+    base = dict(problem="F3", n=32, bits_per_var=10, generations=256)
     jobs = [dict(base, seed=11 + i) for i in range(k)]
     if k >= 3:
         # a later high-priority arrival that preempts the running pack
@@ -147,7 +149,8 @@ def main():
         print(f"streams:  http://0.0.0.0:{port}/jobs/<id>/stream  (SSE)")
 
     ids = []
-    for obj in job_dicts:
+
+    def submit(obj):
         spec, backend, priority, deadline_s, max_retries = _spec_from(obj)
         job_id = sched.submit(spec, backend=backend, priority=priority,
                               deadline_s=deadline_s, max_retries=max_retries)
@@ -155,6 +158,14 @@ def main():
         print(f"submitted {job_id}: {spec.problem or 'blackbox'} "
               f"gens={spec.generations} priority={priority}"
               + (f" deadline={deadline_s}s" if deadline_s else ""))
+
+    # the demo's high-priority job arrives once the first pack is running
+    # (after its first chunk when streaming), so it preempts that pack
+    late = [obj for obj in job_dicts[1:]
+            if args.demo > 0 and obj.get("priority", 0) > 0]
+    for obj in job_dicts:
+        if not any(obj is o for o in late):
+            submit(obj)
 
     try:
         if args.stream == "first" and ids:
@@ -165,6 +176,10 @@ def main():
                       f"{event['gens_done']}/{event['gens_total']} gens, "
                       f"best={event['best_fitness']:.4f}, "
                       f"pack={event.get('pack_size', 1)}")
+                while late:
+                    submit(late.pop(0))
+        while late:
+            submit(late.pop(0))
         sched.wait_all(timeout=600)
         for job_id in ids:
             res = sched.result(job_id)

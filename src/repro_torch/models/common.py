@@ -1,0 +1,190 @@
+"""Shared model substrate: parameter definitions and their initialisation,
+norms, RoPE.
+
+The JAX package's `repro.models.common`.  A block is a `ParamModule`: an
+`nn.Module` whose parameters are named as the JAX package's leaves and are
+made from a table of `ParamDef`s by an `Init`, which says the device, the
+dtype and the seeded `torch.Generator` they are drawn from.  Logical
+sharding axes have no counterpart on one card and are left out.
+
+    init = Init(torch.bfloat16, torch.device("cuda"),
+                torch.Generator("cuda").manual_seed(0))
+"""
+
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"              # normal | zeros | ones
+    dtype: Optional[torch.dtype] = None   # None: the model's dtype
+    scale: Optional[float] = None     # override stddev
+
+
+def stddev(d: ParamDef) -> float:
+    if d.scale is not None:
+        return d.scale
+    # fan-in on the last-but-one dim for matrices, d_model for embeddings
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+@dataclasses.dataclass
+class Init:
+    """Where a model's tensors are made.  "normal" parameters are drawn in
+    float32 from `generator` (on `device`) times their stddev, then cast;
+    without a generator they are left uninitialised for a converter to
+    fill.  On the meta device nothing is allocated (counting only)."""
+
+    dtype: torch.dtype
+    device: torch.device
+    generator: Optional[torch.Generator] = None
+
+    def tensor(self, d: ParamDef) -> torch.Tensor:
+        dtype = d.dtype or self.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=self.device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=self.device)
+        if self.generator is None or self.device.type == "meta":
+            return torch.empty(d.shape, dtype=dtype, device=self.device)
+        v = torch.randn(d.shape, generator=self.generator,
+                        dtype=torch.float32, device=self.device)
+        return v.mul_(stddev(d)).to(dtype)
+
+
+def seeded_init(dtype: torch.dtype, device, seed: int) -> Init:
+    """An `Init` drawing from a generator on `device` seeded with `seed`."""
+    device = torch.device(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+    return Init(dtype, device, gen)
+
+
+class ParamModule(nn.Module):
+    """A block whose parameters are the JAX package's leaves by name."""
+
+    def __init__(self, defs: Dict[str, ParamDef], init: Init):
+        super().__init__()
+        for name, d in defs.items():
+            self.register_parameter(
+                name, nn.Parameter(init.tensor(d), requires_grad=False))
+
+
+def zeros_tree(defs: Any, dtype: torch.dtype, device) -> Any:
+    """Materialise a (nested dict / list) tree of cache `ParamDef`s as
+    zeros; leaves that are not `ParamDef`s (a cache's position) pass."""
+    if isinstance(defs, ParamDef):
+        return torch.zeros(defs.shape, dtype=defs.dtype or dtype,
+                           device=device)
+    if isinstance(defs, dict):
+        return {k: zeros_tree(v, dtype, device) for k, v in defs.items()}
+    if isinstance(defs, list):
+        return [zeros_tree(v, dtype, device) for v in defs]
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """Statistics in f32, application in the input dtype, `(1 + w)` with a
+    zero-initialised `w`."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + w.to(x.dtype))
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    centered = xf - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (NeoX half-rotation convention)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _powf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    return libm.powf
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(theta: float, half: int, device: torch.device
+                ) -> torch.Tensor:
+    """theta ** (-i/half) for i < half in float32, by the C library's
+    `powf`: XLA's float32 `pow` on the CPU gives the same words, where a
+    float64 power rounded to float32 parts from it near a midpoint (at
+    theta 5e4, half 64, i 9).  Made once a (theta, half, device)."""
+    powf = _powf()
+    expo = -np.arange(half, dtype=np.float32) / np.float32(half)
+    out = np.array([powf(theta, float(e)) for e in expo], np.float32)
+    return torch.tensor(out, device=device)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for integer positions: each (..., head_dim/2) f32."""
+    freqs = _rope_freqs(float(theta), head_dim // 2, positions.device)
+    ang = positions.float()[..., None] * freqs        # (..., half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (B, S, hd/2) or (S, hd/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    xf1, xf2 = x1.float(), x2.float()
+    o1 = xf1 * cos - xf2 * sin
+    o2 = xf2 * cos + xf1 * sin
+    return torch.cat([o1, o2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, D) f32."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.as_tensor(emb.astype(np.float32), device=device)

@@ -1,0 +1,49 @@
+"""Feed-forward blocks: gated SiLU (llama family) and plain GELU (whisper);
+the JAX package's `repro.models.mlp`."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common as C
+
+
+def gated_defs(d_model: int, d_ff: int) -> Dict[str, C.ParamDef]:
+    return {
+        "w_gate": C.ParamDef((d_model, d_ff)),
+        "w_up": C.ParamDef((d_model, d_ff)),
+        "w_down": C.ParamDef((d_ff, d_model)),
+    }
+
+
+class GatedMLP(C.ParamModule):
+    def __init__(self, d_model: int, d_ff: int, init: C.Init):
+        super().__init__(gated_defs(d_model, d_ff), init)
+
+    def forward(self, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+        g = C.dense(x, self.w_gate)
+        u = C.dense(x, self.w_up)
+        a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+        return C.dense((a * u).to(x.dtype), self.w_down)
+
+
+def plain_defs(d_model: int, d_ff: int) -> Dict[str, C.ParamDef]:
+    return {
+        "w_in": C.ParamDef((d_model, d_ff)),
+        "b_in": C.ParamDef((d_ff,), init="zeros"),
+        "w_out": C.ParamDef((d_ff, d_model)),
+        "b_out": C.ParamDef((d_model,), init="zeros"),
+    }
+
+
+class PlainMLP(C.ParamModule):
+    def __init__(self, d_model: int, d_ff: int, init: C.Init):
+        super().__init__(plain_defs(d_model, d_ff), init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = C.dense(x, self.w_in, self.b_in)
+        h = F.gelu(h, approximate="tanh").to(x.dtype)
+        return C.dense(h, self.w_out, self.b_out)

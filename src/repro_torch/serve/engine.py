@@ -1,15 +1,22 @@
-"""GA serving telemetry: `run_ga_job` and the per-job metrics registry.
+"""Batched LM serving, and GA serving telemetry; the JAX package's
+`repro.serve.engine`, both halves under the same names.
 
-`run_ga_job` drives `repro_torch.ga.Engine.run_chunked` under a job id and
-aggregates its per-chunk telemetry (generations/s, best-fitness
-trajectory, migration count) into `GA_METRICS`, whose `metrics()`
-snapshot is the /metrics-style dict `repro_torch.serve.metrics_http`
-serves; `repro_torch.serve.scheduler.GAScheduler` feeds the same registry
-from its worker thread.
+The LM half: `Engine` runs a fixed batch of `slots` in lock-step over one
+model's `prefill` and `decode_step` on one device (the card unless the
+caller asks for the CPU), and `serve_queue` refills the batch from a queue
+of requests.  The decode position is a Python int, so the decode loop never
+waits on the device; only the timers synchronize.  Greedy sampling takes
+the first maximum, as `jnp.argmax` does; otherwise tokens are drawn from
+softmax(logits / temperature) with a `torch.Generator` seeded from `seed`
+(its draws are not `jax.random`'s).
 
-The GA half of the JAX package's `repro.serve.engine`, under the same
-names and dict keys.  A job's `shards` is the count of mesh shards its
-island axis spans (`RunTelemetry.topology.n_shards`; 1 without a mesh).
+The GA half: `run_ga_job` drives `repro_torch.ga.Engine.run_chunked` under a
+job id and aggregates its per-chunk telemetry (generations/s, best-fitness
+trajectory, migration count) into `GA_METRICS`, whose `metrics()` snapshot
+is the /metrics-style dict `repro_torch.serve.metrics_http` serves;
+`repro_torch.serve.scheduler.GAScheduler` feeds the same registry from its
+worker thread.  A job's `shards` is the count of mesh shards its island
+axis spans (`RunTelemetry.topology.n_shards`; 1 without a mesh).
 """
 
 from __future__ import annotations
@@ -17,7 +24,156 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm as LM
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int = 32
+    out_tokens: Optional[List[int]] = None
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    batch: int = 8
+    max_len: int = 512
+    greedy: bool = True
+    temperature: float = 1.0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Engine:
+    """Slot-based batched generation over (prefill, decode_step).
+
+    `params` is the `LM` (`repro_torch.models.lm.init_params`, or
+    `repro_torch.models.convert.lm_params_from_numpy`), already on
+    `device`: the card by default, which raises where there is none;
+    `device="cpu"` runs on the CPU."""
+
+    def __init__(self, cfg: ModelConfig, params: LM.LM, ecfg: EngineConfig,
+                 device=None):
+        dev = torch.device(device or "cuda")
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Engine(device={str(dev)!r}) needs a CUDA device and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "serve on the CPU")
+        held = next(params.parameters()).device
+        if held.type != dev.type or (dev.index is not None
+                                     and held.index != dev.index):
+            raise ValueError(f"the model's parameters are on {held}, the "
+                             f"engine's device is {dev}: build the model "
+                             "there")
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.device = dev
+
+    def _sample(self, logits: torch.Tensor,
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+        if self.ecfg.greedy:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float() / self.ecfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    def _on_device(self, a) -> Optional[torch.Tensor]:
+        return None if a is None else torch.as_tensor(a, device=self.device)
+
+    def generate(self, prompts, max_new_tokens: int = 32, frames=None,
+                 patches=None, seed: int = 0
+                 ) -> Tuple[np.ndarray, Dict[str, float]]:
+        """Lock-step generation. prompts: (B, S) ints.  Returns the
+        (B, max_new_tokens) int32 tokens and the timings (host clock up to
+        a device synchronize)."""
+        prompts = np.asarray(prompts)
+        b, s = prompts.shape
+        if b != self.ecfg.batch:
+            raise ValueError(f"{b} prompts for an engine of batch "
+                             f"{self.ecfg.batch}")
+        frames, patches = self._on_device(frames), self._on_device(patches)
+        kw = {}
+        if frames is not None:
+            kw["frames"] = frames
+        if patches is not None:
+            kw["patches"] = patches
+        with torch.inference_mode():
+            cache = LM.new_cache(self.cfg, b, self.ecfg.max_len,
+                                 device=self.device)
+            prefix = s + (patches.shape[1] if patches is not None
+                          and self.cfg.family == "vlm" else 0)
+            slots = self.params.position_slots(cache)
+            if slots is not None and prefix + max_new_tokens - 1 > slots:
+                raise ValueError(
+                    f"{prefix} prompt positions and {max_new_tokens} new "
+                    f"tokens reach position {prefix + max_new_tokens - 2}, "
+                    f"past the cache's {slots} slots")
+            tokens = torch.as_tensor(prompts, dtype=torch.long,
+                                     device=self.device)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            logits, cache = self.params.prefill(tokens, cache, **kw)
+            _sync(self.device)
+            t_prefill = time.perf_counter() - t0
+
+            gen = None
+            if not self.ecfg.greedy:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+            tok = self._sample(logits, gen)[:, None]
+            out = [tok]
+            t1 = time.perf_counter()
+            for _ in range(max_new_tokens - 1):
+                logits, cache = self.params.decode_step(tok, cache)
+                tok = self._sample(logits, gen)[:, None]
+                out.append(tok)
+            _sync(self.device)
+            t_decode = time.perf_counter() - t1
+            toks = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        return toks, {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_per_s": b * (max_new_tokens - 1) / max(t_decode, 1e-9),
+        }
+
+
+def serve_queue(engine: Engine, requests: List[Request],
+                max_new_tokens: int = 16) -> Dict[int, np.ndarray]:
+    """Minimal continuous batching: group requests into engine-sized
+    batches, refilling from the queue as batches finish.  Prompts are
+    left-padded with zeros and attend the padding, as in the JAX package."""
+    q: "queue.Queue[Request]" = queue.Queue()
+    for r in requests:
+        q.put(r)
+    results: Dict[int, np.ndarray] = {}
+    bsz = engine.ecfg.batch
+    while not q.empty():
+        batch: List[Request] = []
+        while len(batch) < bsz and not q.empty():
+            batch.append(q.get())
+        while len(batch) < bsz:           # pad with a copy of the last req
+            batch.append(batch[-1])
+        slen = max(len(r.prompt) for r in batch)
+        prompts = np.zeros((bsz, slen), np.int32)
+        for i, r in enumerate(batch):
+            prompts[i, -len(r.prompt):] = r.prompt
+        toks, _ = engine.generate(prompts, max_new_tokens)
+        for i, r in enumerate(batch):
+            if r.uid not in results:
+                results[r.uid] = toks[i]
+    return results
+
 
 # ---------------------------------------------------------------------------
 # GA job telemetry (Engine.run_chunked -> /metrics-style dicts)

@@ -729,3 +729,71 @@ def test_sharded_plans_across_cards_match_one_card(cuda_device, kw, mode):
     assert got.telemetry.topology.n_shards == n
     assert got.state.x.device == mesh.first_device
     _assert_same_solve(got, one, traj=mode != "resident-sharded")
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path on the card: every architecture at reduced size, in
+# float32 with TF32 off, against the same weights on the CPU.  Bound:
+# |Δ| <= 5e-4 * max(1, max|CPU|), the float32 bound the CPU tests hold the
+# port to against JAX (tests/test_torch_lm_common.py): the card sums in
+# other orders than the CPU does.
+# ---------------------------------------------------------------------------
+
+LM_F32_REL = 5e-4
+LM_ARCHS = ("deepseek-v3-671b", "gemma3-27b", "mamba2-1.3b", "minitron-8b",
+            "moonshot-v1-16b-a3b", "pixtral-12b", "qwen1.5-32b",
+            "whisper-large-v3", "yi-34b", "zamba2-2.7b")
+
+
+def _lm_run(model, cfg, data, device, s):
+    from repro_torch.models import lm as TLM
+    p = cfg.n_patches if cfg.family == "vlm" else 0
+    toks = torch.as_tensor(data["tokens"], dtype=torch.long, device=device)
+    kw = {k: torch.as_tensor(v, device=device) for k, v in data.items()
+          if k != "tokens"}
+    with torch.inference_mode():
+        full, _ = model({"tokens": toks, **kw})
+        cache = TLM.new_cache(cfg, toks.shape[0], s + 8 + p, device=device)
+        lp, cache = model.prefill(toks[:, :s], cache, **kw)
+        d1, cache = model.decode_step(toks[:, s:s + 1], cache)
+        d2, cache = model.decode_step(toks[:, s + 1:s + 2], cache)
+    return [t.float().cpu().numpy() for t in (full, lp, d1, d2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    import copy
+
+    from repro_torch import configs as TCONF
+    from repro_torch.models import lm as TLM
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(TCONF.reduced(TCONF.get_config(arch)),
+                              dtype="float32")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    s, b = 32, 2
+    p = cfg.n_patches if cfg.family == "vlm" else 0
+    rng = np.random.default_rng(1)
+    data = {"tokens": rng.integers(0, cfg.vocab, (b, s + 2))}
+    if cfg.family == "audio":
+        data["frames"] = (rng.normal(size=(b, cfg.enc_seq, cfg.d_model))
+                          * 0.1).astype(np.float32)
+    if cfg.family == "vlm":
+        data["patches"] = (rng.normal(size=(b, cfg.n_patches, cfg.d_model))
+                           * 0.1).astype(np.float32)
+    cpu = TLM.init_params(cfg, max_seq=s + 8 + p, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    want = _lm_run(cpu, cfg, data, "cpu", s)
+    got = _lm_run(card, cfg, data, cuda_device, s)
+    for g, w in zip(got, want):
+        err = np.abs(g - w).max() / max(1.0, np.abs(w).max())
+        assert err <= LM_F32_REL, err
+    # and on the card, prefill and decode reproduce its own forward
+    full, lp, d1, d2 = got
+    assert np.abs(lp - full[:, p + s - 1]).max() <= LM_F32_REL * max(
+        1.0, np.abs(full).max())
+    for i, d in enumerate((d1, d2)):
+        assert np.abs(d - full[:, p + s + i]).max() <= 5 * LM_F32_REL * max(
+            1.0, np.abs(full).max())

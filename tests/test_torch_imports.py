@@ -1,6 +1,7 @@
 """The port stands alone: no module under src/repro_torch/, no
-scripts/torch_*.py and not chip_smoke.py imports `jax` or anything of the
-JAX package `repro`."""
+scripts/torch_*.py, no examples/torch_*.py and not chip_smoke.py imports
+`jax` or anything of the JAX package `repro`; and nothing under
+src/repro_torch/ calls a library attention kernel."""
 
 import ast
 from pathlib import Path
@@ -14,6 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "scripts").glob("torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     smoke = ROOT / "chip_smoke.py"
     if smoke.exists():
         files.append(smoke)
@@ -58,6 +60,16 @@ def test_port_files_found():
     assert {"src/repro_torch/launch/mesh.py",
             "scripts/torch_scheduler_smoke.py",
             "scripts/torch_chaos_smoke.py"} <= rel
+    # and the LM serving path, its launcher and the examples
+    assert {"src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/models/common.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/lm.py",
+            "src/repro_torch/models/convert.py",
+            "src/repro_torch/launch/serve.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_custom_fitness.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -65,3 +77,19 @@ def test_port_files_found():
 def test_no_jax_or_repro_import(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# library attention and MoE kernels the port must not call: its attention
+# is the JAX package's float32 einsum form
+LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn",
+                   "flash_attention", "xformers", "memory_efficient_attention",
+                   "MultiheadAttention", "grouped_mm", "_grouped_mm")
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_attention(path):
+    text = path.read_text()
+    bad = [name for name in LIBRARY_KERNELS if name in text]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
