@@ -13,6 +13,9 @@ checkpoint of either package resumes in the other:
     ``.name`` (a `GAState` gives ``.x``, ``.sel_lfsr``, ``.cross_lfsr``,
     ``.mut_lfsr``, ``.k``), a dict entry its key, a sequence entry its
     index, joined by ``/`` (``__`` inside the npz);
+  * bfloat16 leaves are stored as their raw uint16 words with logical
+    dtype ``bfloat16``, as the JAX package stores ml_dtypes, and restore
+    into torch tensors; int8 leaves (8-bit AdamW moments) as they are;
   * the port carries uint32 words as int32 bit patterns (hazard H2); a
     `GAState`'s four word arrays are written as ``np.uint32`` through
     `repro_torch.convert`, with logical dtype ``uint32`` in the manifest,
@@ -112,28 +115,37 @@ def _unflatten(tree_like, leaves: Dict[str, Any], prefix: str = ""):
     return leaves[prefix]
 
 
-def _host(leaf, word: bool) -> np.ndarray:
-    """A host copy of one leaf, words as np.uint32; never a view of a
-    tensor that later work could change."""
+def _host(leaf, word: bool) -> Tuple[np.ndarray, str]:
+    """A host copy of one leaf and its logical dtype: words as np.uint32,
+    a bfloat16 tensor as its raw uint16 words (logical "bfloat16", as the
+    JAX package stores ml_dtypes); never a view of a tensor that later
+    work could change."""
     if isinstance(leaf, torch.Tensor):
         if word:
             if leaf.dtype != torch.int32:
                 raise TypeError(f"GAState word arrays are int32 bit "
                                 f"patterns, got {leaf.dtype}")
-            return convert.words_to_numpy(leaf).copy()
-        return leaf.detach().cpu().numpy().copy()
-    return np.array(leaf, copy=True)
+            return convert.words_to_numpy(leaf).copy(), "uint32"
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).copy(), \
+                "bfloat16"
+        arr = t.numpy().copy()
+        return arr, str(arr.dtype)
+    arr = np.array(leaf, copy=True)
+    return arr, str(arr.dtype)
 
 
-def host_snapshot(tree) -> List[Tuple[str, np.ndarray]]:
-    """Every leaf of `tree` copied to host memory: (flattened key, array).
-    Waits for the device's pending work on the leaves first."""
+def host_snapshot(tree) -> List[Tuple[str, np.ndarray, str]]:
+    """Every leaf of `tree` copied to host memory: (flattened key, stored
+    array, logical dtype).  Waits for the device's pending work on the
+    leaves first."""
     flat = _flatten(tree)
     for dev in {leaf.device for _k, leaf, _w in flat
                 if isinstance(leaf, torch.Tensor)
                 and leaf.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
-    return [(k, _host(leaf, w)) for k, leaf, w in flat]
+    return [(k, *_host(leaf, w)) for k, leaf, w in flat]
 
 
 def _crc32_file(path: str) -> int:
@@ -150,9 +162,8 @@ def _write(ckpt_dir: str, step: int, snapshot, extra, host_id: int,
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     arrays, meta = {}, {}
-    for k, arr in snapshot:
-        logical_dtype = str(arr.dtype)
-        if logical_dtype not in _PLAIN_DTYPES:
+    for k, arr, logical_dtype in snapshot:
+        if str(arr.dtype) not in _PLAIN_DTYPES:
             raise TypeError(f"checkpoint leaf {k!r} has dtype "
                             f"{logical_dtype}, which the format cannot hold")
         arrays[k.replace(_SEP, "__")] = arr
@@ -299,13 +310,17 @@ def _placed_device(arr: np.ndarray, place, key: str, like_device):
     return mesh.first_device
 
 
-def _leaf_like(arr: np.ndarray, like, word: bool, device=None):
+def _leaf_like(arr: np.ndarray, like, word: bool, device=None,
+               logical: Optional[str] = None):
     """The stored array as a leaf of `like`'s kind and dtype, on `device`
-    (default `like`'s)."""
+    (default `like`'s); `logical` "bfloat16" reads raw uint16 words."""
     if isinstance(like, torch.Tensor):
         device = like.device if device is None else torch.device(device)
         if word:
             t = convert.words_from_numpy(arr, device=device)
+        elif logical == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+                .view(torch.bfloat16).to(device=device, dtype=like.dtype)
         else:
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(
                 device=device, dtype=like.dtype)
@@ -344,12 +359,17 @@ def restore(ckpt_dir: str, step: int, tree_like, shardings=None,
         for k, like, word in _flatten(tree_like):
             arr = data[k.replace(_SEP, "__")]
             logical = keymeta.get(k, {}).get("dtype", str(arr.dtype))
-            if logical != str(arr.dtype):
+            raw_bf16 = logical == "bfloat16" and arr.dtype == np.uint16
+            if logical != str(arr.dtype) and not raw_bf16:
                 arr = arr.astype(logical)
+            if raw_bf16 and not isinstance(like, torch.Tensor):
+                raise TypeError(f"checkpoint key {k!r} holds bfloat16, "
+                                "which restores into a torch tensor only")
             if word and arr.dtype != np.uint32:
                 raise TypeError(f"checkpoint key {k!r} holds {arr.dtype}, "
                                 "not the uint32 words of a GAState")
             device = _placed_device(arr, place.get(k), k,
                                     getattr(like, "device", None))
-            out[k] = _leaf_like(arr, like, word, device)
+            out[k] = _leaf_like(arr, like, word, device,
+                                "bfloat16" if raw_bf16 else None)
     return _unflatten(tree_like, out), manifest.get("extra", {})

@@ -143,6 +143,13 @@ def _powf():
     return libm.powf
 
 
+def powf(base: float, expo: float) -> np.float32:
+    """`base ** expo` in float32 by the C library's `powf`: the words XLA's
+    float32 `pow` gives on the CPU."""
+    return np.float32(_powf()(float(np.float32(base)),
+                              float(np.float32(expo))))
+
+
 @functools.lru_cache(maxsize=None)
 def _rope_freqs(theta: float, half: int, device: torch.device
                 ) -> torch.Tensor:

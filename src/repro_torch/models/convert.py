@@ -10,11 +10,18 @@ leaf `groups/locals/mlp/w_up` at index [1, 0].
                                  device="cpu")
     cache = cache_from_numpy(cfg, jax_cache_as_numpy, device="cpu")
     tree = cache_to_numpy(cache)       # the JAX layout, stacked again
+    tree = lm_params_to_numpy(model)   # the JAX parameter tree, stacked
+    opt = opt_state_to_numpy(state)    # AdamW's state in the JAX layout
+    state = opt_state_from_numpy(opt, model)
+
+`stack_named` / `unstack_named` carry any tree of per-parameter tensors
+(parameters, gradients, moments) between the two layouts; a training
+checkpoint holds the stacked layout (`repro_torch.train.loop`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
 from repro_torch.models import lm as LM
+from repro_torch.optim import adamw as OPT
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -146,3 +154,142 @@ def cache_to_numpy(cache: Any) -> Any:
     if isinstance(cache, torch.Tensor):
         return _to_numpy(cache)
     return np.int32(cache)
+
+
+# ---------------------------------------------------------------------------
+# Parameter-shaped trees: the port's names <-> the JAX stacked layout
+# ---------------------------------------------------------------------------
+
+
+def _split_name(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """`groups.1.locals.0.mlp.w_up` -> (("groups", "locals", "mlp",
+    "w_up"), (1, 0)): the JAX leaf's path and the index into its stack."""
+    parts = name.split(".")
+    return (tuple(x for x in parts if not x.isdigit()),
+            tuple(int(x) for x in parts if x.isdigit()))
+
+
+def _put_path(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _get_path(tree, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def stack_named(named: Mapping[str, torch.Tensor],
+                to: Callable = lambda t: t) -> Dict[str, Any]:
+    """Per-parameter tensors by port name -> the JAX tree, each stack's
+    layers stacked along leading axes (torch tensors, through `to` first:
+    `to=lambda t: t.cpu()` stacks on the host)."""
+    groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], torch.Tensor]] = {}
+    for name, t in named.items():
+        path, idx = _split_name(name)
+        groups.setdefault(path, {})[idx] = to(t)
+    tree: Dict[str, Any] = {}
+    for path, items in groups.items():
+        if list(items) == [()]:
+            _put_path(tree, path, items[()])
+            continue
+        grid = tuple(max(i[d] for i in items) + 1
+                     for d in range(len(next(iter(items)))))
+        if len(items) != int(np.prod(grid)):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(items)} do "
+                             f"not fill a {grid} stack")
+        flat = [items[i] for i in np.ndindex(*grid)]
+        _put_path(tree, path, torch.stack(flat).reshape(
+            grid + tuple(flat[0].shape)))
+    return tree
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else _tensor(a, "cpu")
+
+
+def unstack_named(tree: Dict[str, Any], names) -> Dict[str, torch.Tensor]:
+    """The inverse of `stack_named`: the slice of the JAX tree's leaf for
+    each port name in `names` (numpy or tensor leaves), contiguous."""
+    out = {}
+    for name in names:
+        path, idx = _split_name(name)
+        out[name] = _as_tensor(_get_path(tree, path))[idx].contiguous()
+    return out
+
+
+def lm_params_to_numpy(model: LM.LM) -> Dict[str, Any]:
+    """The port's LM -> the JAX parameter tree (the inverse of
+    `lm_params_from_numpy`): stacked layers, numpy leaves, bfloat16
+    widened to float32 (exact, and narrowed back exactly on the way in)."""
+    stacked = stack_named(dict(model.named_parameters()),
+                          to=lambda t: t.detach().cpu())
+    return map_tree(stacked, _to_numpy)
+
+
+def map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_moments(moments: Mapping[str, Any], to: Callable) -> Dict[str, Any]:
+    """AdamW moments by port name -> the JAX layout: float32 leaves
+    stacked; a QTensor's `q` and `scale` stacked apart into one
+    `OPT.QTensor` whose `shape` is the stacked shape."""
+    plain = {n: to(m) for n, m in moments.items()
+             if not isinstance(m, OPT.QTensor)}
+    tree = stack_named(plain)
+    qs = {n: m for n, m in moments.items() if isinstance(m, OPT.QTensor)}
+    q_tree = stack_named({n: to(m.q) for n, m in qs.items()})
+    s_tree = stack_named({n: to(m.scale) for n, m in qs.items()})
+    for n in qs:
+        path, _ = _split_name(n)
+        q, scale = _get_path(q_tree, path), _get_path(s_tree, path)
+        _put_path(tree, path, OPT.QTensor(q, scale, tuple(q.shape), 0))
+    return tree
+
+
+def opt_state_to_numpy(state: OPT.AdamState) -> OPT.AdamState:
+    """The port's AdamW state -> the JAX layout with numpy leaves: `step`
+    an int32, `m` and `v` trees of the parameter tree's shape whose leaves
+    are float32 arrays or `OPT.QTensor`s of numpy `q` and `scale`."""
+    to = lambda t: t.detach().cpu()
+    conv = lambda tree: map_tree(
+        tree, lambda x: OPT.QTensor(x.q.numpy(), x.scale.numpy(), x.shape,
+                                    x.npad)
+        if isinstance(x, OPT.QTensor) else x.numpy())
+    return OPT.AdamState(np.int32(state.step),
+                         conv(stack_moments(state.m, to)),
+                         conv(stack_moments(state.v, to)))
+
+
+def opt_state_from_numpy(state: OPT.AdamState, model: LM.LM
+                         ) -> OPT.AdamState:
+    """The JAX layout (numpy or tensor leaves; a quantized leaf anything
+    with `q` and `scale`, the JAX package's QTensor included) -> the
+    port's AdamW state for `model`'s parameters, on each parameter's
+    device."""
+    named = dict(model.named_parameters())
+
+    def one(tree):
+        out = {}
+        for n, p in named.items():
+            path, idx = _split_name(n)
+            leaf = _get_path(tree, path)
+            dev = p.device
+            if hasattr(leaf, "q"):
+                q = _as_tensor(leaf.q)[idx].to(device=dev, dtype=torch.int8)
+                s = _as_tensor(leaf.scale)[idx].to(device=dev,
+                                                   dtype=torch.float32)
+                out[n] = OPT.QTensor(q.contiguous(), s.contiguous(),
+                                     tuple(q.shape), 0)
+            else:
+                out[n] = _as_tensor(leaf)[idx].to(
+                    device=dev, dtype=torch.float32).contiguous()
+        return out
+
+    return OPT.AdamState(int(np.asarray(state.step)), one(state.m),
+                         one(state.v))

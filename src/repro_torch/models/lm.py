@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
@@ -375,14 +376,15 @@ class LM(nn.Module):
         w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
         return torch.matmul(x, w)
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, remat: bool = False
+               ) -> torch.Tensor:
         """whisper's encoder over the (B, enc_seq, D) stub frames."""
         cfg = self.cfg
         enc = frames.to(device=self.embed.device, dtype=cfg.torch_dtype)
         enc = enc + C.sinusoidal_pos(enc.shape[1], cfg.d_model,
                                      device=enc.device).to(enc.dtype)
         for lp in self.enc_layers:
-            enc = lp(enc)
+            enc = _run(lp, remat, enc)
         return self.enc_norm(enc)
 
     def _inputs(self, tokens, patches=None, start: int = 0):
@@ -396,23 +398,28 @@ class LM(nn.Module):
             x = x + self.dec_pos[start:start + x.shape[1]][None].to(x.dtype)
         return x
 
-    def _context(self, frames) -> Dict[str, torch.Tensor]:
+    def _context(self, frames, remat: bool = False
+                 ) -> Dict[str, torch.Tensor]:
         """What every layer of a pass reads besides the stream: whisper's
         encoder states."""
-        return {"enc": self.encode(frames)} if self.cfg.family == "audio" \
-            else {}
+        return ({"enc": self.encode(frames, remat)}
+                if self.cfg.family == "audio" else {})
 
     # ---- the three passes ---------------------------------------------------
 
-    def forward(self, batch: Dict[str, torch.Tensor]
+    def forward(self, batch: Dict[str, torch.Tensor], remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits (B,S,V), aux_loss scalar)."""
+        """Returns (logits (B,S,V), aux_loss scalar).  With `remat`, each
+        entry of the plan (and each of whisper's encoder layers) runs
+        under activation checkpointing: its activations are recomputed in
+        the backward pass instead of kept, as the JAX package wraps each
+        scanned body in `jax.checkpoint`; no value changes."""
         tokens = batch["tokens"]
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        kw = self._context(batch.get("frames"))
+        kw = self._context(batch.get("frames"), remat)
         x = self._inputs(tokens, batch.get("patches"))
         for layer, _ in self.plan:
-            x, a = layer(x, **kw)
+            x, a = _run(layer, remat, x, **kw)
             if a is not None:
                 aux = aux + a
         return self.head(x), aux
@@ -459,6 +466,14 @@ class LM(nn.Module):
             _put(cache, paths[0], new)
         cache["pos"] = pos + 1
         return self.head(x)[:, 0], cache
+
+
+def _run(layer: nn.Module, remat: bool, *args, **kw):
+    """`layer(*args, **kw)`, under activation checkpointing with `remat`
+    while autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False, **kw)
+    return layer(*args, **kw)
 
 
 def _at(tree, path: Path):

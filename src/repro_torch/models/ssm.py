@@ -129,11 +129,16 @@ def ssd_chunked(x, dt, a, b, c, cfg: SSMConfig,
     cs = torch.cumsum(da, dim=2)                        # within-chunk
     x_dt = xc * dtc[..., None]
 
-    # intra-chunk (attention-like, lower-triangular decay kernel)
+    # intra-chunk (attention-like, lower-triangular decay kernel).  The
+    # mask goes in before the exp: above the diagonal li > 0 grows with the
+    # chunk (past 88 at chunk 256, where exp overflows), and the JAX
+    # package's where(tri, exp(li), 0) then back-propagates 0 * inf = NaN.
+    # exp(-inf) = 0, so the values are the same; the gradients are finite.
     li = cs[:, :, :, None, :] - cs[:, :, None, :, :]    # (B,Nc,Q,Q,H) i,j
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(li),
-                        torch.zeros((), dtype=li.dtype, device=x.device))
+    l_mat = torch.exp(torch.where(
+        tri[None, None, :, :, None], li,
+        torch.full((), float("-inf"), dtype=li.dtype, device=x.device)))
     cb = torch.einsum("bcihn,bcjhn->bcijh", cc, bc)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", cb * l_mat, x_dt)
 

@@ -797,3 +797,68 @@ def test_lm_reduced_on_card_matches_cpu(cuda_device, arch, monkeypatch):
     for i, d in enumerate((d1, d2)):
         assert np.abs(d - full[:, p + s + i]).max() <= 5 * LM_F32_REL * max(
             1.0, np.abs(full).max())
+
+
+# ---------------------------------------------------------------------------
+# LM training: one train step on the card against the CPU, and AdamW's
+# 8-bit update of one leaf (chip_smoke.py phase 14 runs all ten families)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("minitron-8b", "moonshot-v1-16b-a3b", "mamba2-1.3b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """A reduced float32 train step with remat (TF32 off): the loss within
+    1e-5 relative, every gradient leaf within 1e-4 x its max|g|, the
+    updated parameters within 2 ulps plus lr x the gap of the two
+    gradients' first Adam step directions (`repro_torch.train.parity`,
+    which chip_smoke.py phase 14 (a) runs for all ten); and remat
+    bit-equal to no remat on the card."""
+    from repro_torch.train import parity
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    r = parity.hold_step(arch, cuda_device)
+    assert r["loss_rel"] <= 1e-5, r["loss"]
+    assert r["aux_gap"] <= 1e-5 * r["aux_scale"], r["aux"]
+    assert r["remat_equal"]
+    assert max(r["grad_rel"].values()) <= 1e-4, r["grad_rel"]
+    assert max(r["update_excess"].values()) <= 0, r["update_excess"]
+
+
+@pytest.mark.cuda
+def test_train_8bit_update_on_card_matches_cpu(cuda_device):
+    """Three 8-bit AdamW steps of one bf16 leaf (512 x 1024) and one that
+    cannot be quantized, from the same gradients, the clip out of reach
+    (the norm is a reduction whose order differs): parameters, q and
+    scale equal on the card and the CPU in all but 0.1% of the elements,
+    there within one unit."""
+    from repro_torch.optim import adamw as OPT
+    rng = np.random.default_rng(0)
+    cfg = OPT.AdamWConfig(lr=1e-2, state_bits=8, grad_clip=1e30)
+    p0 = {"w": torch.tensor(rng.normal(size=(512, 1024)).astype(np.float32)
+                            ).to(torch.bfloat16),
+          "b": torch.tensor(rng.normal(size=(5, 7)).astype(np.float32))}
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        params = {k: v.to(dev).clone() for k, v in p0.items()}
+        st = OPT.init(params, cfg)
+        g_rng = np.random.default_rng(1)
+        for _ in range(3):
+            grads = {k: torch.tensor(g_rng.normal(size=v.shape).astype(
+                np.float32)).to(device=dev, dtype=v.dtype)
+                for k, v in params.items()}
+            st, _ = OPT.update(params, grads, st, cfg)
+        runs[torch.device(dev).type] = (params, st)
+    (pc, sc), (pk, sk) = runs["cpu"], runs["cuda"]
+    for k in p0:
+        d = (pk[k].cpu().float() - pc[k].float()).abs()
+        assert (d > 0).float().mean() <= 1e-3, k
+    assert isinstance(sk.m["w"], OPT.QTensor)
+    for a, b in ((sk.m["w"], sc.m["w"]), (sk.v["w"], sc.v["w"])):
+        dq = (a.q.cpu().int() - b.q.int()).abs()
+        assert dq.max() <= 1 and (dq > 0).float().mean() <= 1e-3
+        ds = (a.scale.cpu().view(torch.int32).long()
+              - b.scale.view(torch.int32).long()).abs()
+        assert ds.max() <= 1

@@ -70,6 +70,19 @@ def test_port_files_found():
             "src/repro_torch/launch/serve.py",
             "examples/torch_quickstart.py",
             "examples/torch_custom_fitness.py"} <= rel
+    # and LM training: data, optimizers, the step, the loop, compressed
+    # DP, the step's parity harness, the launcher and the two training
+    # examples
+    assert {"src/repro_torch/data/pipeline.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/compress.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/train/loop.py",
+            "src/repro_torch/train/dp_compressed.py",
+            "src/repro_torch/train/parity.py",
+            "src/repro_torch/launch/train.py",
+            "examples/torch_train_lm_e2e.py",
+            "examples/torch_evolve_hparams.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

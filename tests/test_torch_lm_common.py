@@ -51,6 +51,7 @@ from repro_torch import configs as TCONF
 from repro_torch.models import common as TC
 from repro_torch.models import convert as CV
 from repro_torch.models import lm as TLM
+from repro_torch.train import parity
 from test_decode import TOL
 
 B, S = 2, 32
@@ -171,9 +172,9 @@ def well_conditioned(params):
     from its own values at 1/sqrt(input width) in place of JAX's
     1/sqrt(heads)."""
     def scale(path, a):
-        if path[-1].key not in ("wq", "wk", "w_uq", "w_uk"):
+        f = parity.qk_factor(path[-1].key, a.shape)
+        if f is None:
             return a
-        f = np.sqrt(a.shape[-2] / a.shape[-3])
         return (a.astype(jnp.float32) * f).astype(a.dtype)
     return jax.tree_util.tree_map_with_path(scale, params)
 
