@@ -47,7 +47,8 @@ def _probe_options(options, *, plan_override=None, sel_lane=None):
     """The engine options a probe runs under: the caller's options (or the
     defaults) with the cost table DISABLED — a measurement must never
     depend on prior measurements — and optionally one mode and/or
-    selection lane forced."""
+    selection lane forced.  The rest rides along: an `smem_budget` makes
+    the streamed mode a candidate at 8 islands or fewer."""
     from repro_torch.ga.options import resolve_options
     base = resolve_options(options)
     if sel_lane is None:
@@ -140,7 +141,9 @@ def sweep(specs: Iterable, *, backend: str = "auto", options=None,
     """Measure every feasible candidate of every spec into one CostTable
     (reuses `table` when given, so sweeps accumulate across invocations).
     The streamed mode is a candidate only where the resident epoch does
-    not fit the card (past 8 islands), as the planner offers it."""
+    not fit the card (past 8 islands) or the options' `smem_budget`, as
+    the planner offers it.  The table's point does not key on the budget:
+    a budget changes which candidates exist, not a candidate's rate."""
     table = CostTable(host=host_fingerprint()) if table is None else table
     for spec in specs:
         measured_keys = set()

@@ -261,8 +261,7 @@ class FusedExecutor(Executor):
             return ("fitness is evaluated outside the operator step "
                     "(jit_fitness=False); use 'eager'")
         if spec.mode != "arith":
-            return ("the CUDA kernel requires mode='arith' — LUT gathers "
-                    "stay on the plain path ('reference')")
+            return K.ARITH_REASON
         if not spec.uses_paper_pipeline:
             return ("fused kernel hardwires the paper pipeline "
                     "(tournament/single_point/xor); other operators run on "
@@ -334,17 +333,18 @@ class Topology:
 
     def __init__(self, spec: GASpec, executor: Executor, *, device,
                  mesh=None, cost_table=None, plan_override=None,
-                 stream_tile_islands=None):
+                 smem_budget=None, stream_tile_islands=None):
         self.spec = spec
         self.cfg = spec.ga_config()
         self.executor = executor
         self.device = device
         self.mesh = mesh
-        # a measured cost table, a forced epoch mode and a pinned streamed
-        # tile; only the island_ring planner reads them — single has one
-        # launch shape
+        # a measured cost table, a forced epoch mode, a planning
+        # shared-memory budget and a pinned streamed tile; only the
+        # island_ring planner reads them — single has one launch shape
         self.cost_table = cost_table
         self.plan_override = plan_override
+        self.smem_budget = smem_budget
         self.stream_tile_islands = stream_tile_islands
         self._cache: Dict[Any, Any] = {}   # instance memo over RUNNER_CACHE
 
@@ -453,7 +453,8 @@ class IslandRingTopology(Topology):
                      whole intervals, the ring inside the kernel;
       resident-free  (fused, migration="none") one K2 launch without a ring
                      folds the whole gens_per_epoch;
-      streamed       (fused, resident refused) one K3 launch folds k
+      streamed       (fused, resident refused: past the cluster, or past
+                     a planning `smem_budget`) one K3 launch folds k
                      whole intervals, the ring inside the kernel through
                      global memory; its island tile comes from how many
                      blocks the card holds at once.
@@ -504,9 +505,10 @@ class IslandRingTopology(Topology):
 
     def __init__(self, spec: GASpec, executor: Executor, *, device,
                  mesh=None, cost_table=None, plan_override=None,
-                 stream_tile_islands=None):
+                 smem_budget=None, stream_tile_islands=None):
         super().__init__(spec, executor, device=device, mesh=mesh,
                          cost_table=cost_table, plan_override=plan_override,
+                         smem_budget=smem_budget,
                          stream_tile_islands=stream_tile_islands)
         self.icfg = ISL.IslandConfig(ga=self.cfg, n_islands=spec.n_islands,
                                      migrate_every=spec.migrate_every)
@@ -547,7 +549,8 @@ class IslandRingTopology(Topology):
             cfg, self.i_local, executor=self.executor.name,
             migration=spec.migration, gens_per_epoch=spec.gens_per_epoch,
             migrate_every=spec.migrate_every, groups=spec.n_repeats,
-            device=self.device, sharded=self.mesh is not None)
+            device=self.device, sharded=self.mesh is not None,
+            budget=self.smem_budget)
 
     def _plan_point(self, cand: Dict[str, Any]) -> Dict[str, Any]:
         return CC.plan_point(self.spec, executor=self.executor.name,
@@ -595,8 +598,9 @@ class IslandRingTopology(Topology):
                 hint = ""
                 if want == "streamed":
                     hint = (" — streamed is only offered when the resident "
-                            "epoch does not fit the card (this spec fits "
-                            "resident)")
+                            "epoch does not fit the card or the planning "
+                            "budget (this spec fits resident; lower "
+                            "smem_budget to force streaming)")
                 elif want == "resident-sharded" and self.mesh is None:
                     hint = (" — resident-sharded needs a mesh "
                             "(EngineOptions(mesh=...))")
@@ -961,6 +965,7 @@ class ComposedBackend(Backend):
             self.spec, self.executor, device=self.device, mesh=self.mesh,
             cost_table=self.cost_table,
             plan_override=self.options.plan_override,
+            smem_budget=self.options.smem_budget,
             stream_tile_islands=self.options.stream_tile_islands)
         # a measured cross-lane plan runs the topology's own executor copy
         self.executor = self.topology.executor

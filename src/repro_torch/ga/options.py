@@ -21,6 +21,13 @@ Knobs:
     with a "mode" key is read the same way); a mode the spec cannot run
     (resident-sharded without a mesh, resident with one) raises with the
     candidates it can.
+  * smem_budget — a shared-memory budget in bytes for PLANNING only (the
+    JAX package's `vmem_budget`): a resident or resident-free epoch whose
+    blocks take more (`kernels.ga_step.resident_smem_bytes`) is refused,
+    and the streamed mode is offered where one K3 block fits it.  The
+    kernels and their limits are unchanged, so it never changes a result;
+    it lets smokes and sweeps reach the streamed mode at 8 islands or
+    fewer.  None: the card's own limits alone.
   * stream_tile_islands — pin the streamed mode's island tile (islands one
     thread block walks in turn; must divide the island count, and on a
     card its blocks must co-reside as the planner's tile's do).  A launch
@@ -72,6 +79,7 @@ class EngineOptions:
     mesh: Any = None
     cost_table: Any = None
     plan_override: Any = None
+    smem_budget: Optional[int] = None
     stream_tile_islands: Optional[int] = None
     sel_lane: Optional[str] = None
     fitness_workers: int = 1
@@ -97,9 +105,10 @@ class EngineOptions:
         if self.sel_lane is not None and self.sel_lane not in SEL_LANES:
             raise ValueError(f"sel_lane must be one of {SEL_LANES}, "
                              f"got {self.sel_lane!r}")
-        tile = self.stream_tile_islands
-        if tile is not None and int(tile) < 1:
-            raise ValueError(f"stream_tile_islands must be >= 1, got {tile!r}")
+        for field in ("smem_budget", "stream_tile_islands"):
+            val = getattr(self, field)
+            if val is not None and int(val) < 1:
+                raise ValueError(f"{field} must be >= 1, got {val!r}")
         if int(self.fitness_workers) < 1:
             raise ValueError(f"fitness_workers must be >= 1, "
                              f"got {self.fitness_workers!r}")
@@ -123,8 +132,8 @@ class EngineOptions:
         """Attach the shared engine-option flags to an ArgumentParser."""
         ap = ap.add_argument_group(
             "engine options",
-            "The JAX package's --vmem-budget has no Hopper counterpart (a "
-            "card's limits are its own).")
+            "--smem-budget is the JAX package's --vmem-budget for the "
+            "card's shared memory: a planning budget only.")
         ap.add_argument("--device", default=None,
                         help="torch device the jobs run on: 'cuda' (the "
                              "default; raises without a card) or 'cpu'")
@@ -135,6 +144,11 @@ class EngineOptions:
         ap.add_argument("--plan-override", default=None, choices=PLAN_MODES,
                         help="force an island-ring epoch mode instead of "
                              "the planner's choice (errors if infeasible)")
+        ap.add_argument("--smem-budget", type=int, default=None,
+                        metavar="BYTES",
+                        help="override the planner's shared-memory "
+                             "feasibility budget (exercises the streamed "
+                             "mode at 8 islands or fewer)")
         ap.add_argument("--stream-tile-islands", type=int, default=None,
                         metavar="T",
                         help="pin the streamed mode's island tile size")
@@ -165,6 +179,7 @@ class EngineOptions:
         return cls(device=getattr(args, "device", None), mesh=mesh,
                    cost_table=ct,
                    plan_override=getattr(args, "plan_override", None),
+                   smem_budget=getattr(args, "smem_budget", None),
                    stream_tile_islands=getattr(args, "stream_tile_islands",
                                                None),
                    sel_lane=getattr(args, "sel_lane", None),

@@ -122,6 +122,11 @@ def epoch_smem_bytes(n: int, v: int, p: int) -> int:
     return _block_bytes(n, v, p, v + 1)
 
 
+# why a LUT config cannot take the kernels: their FFM stage is arith only
+ARITH_REASON = ("the CUDA kernel requires mode='arith' — LUT gathers stay "
+                "on the plain path ('reference')")
+
+
 def problem_id(program: F.FitnessProgram) -> Optional[int]:
     """Kernel id of the program's fitness, or None when the kernel has no
     FFM stage for it (a blackbox, or a problem registered by the user —
@@ -317,18 +322,34 @@ def epoch_smem_reason(cfg: GAConfig) -> Optional[str]:
     return None
 
 
-def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True
-                        ) -> Optional[str]:
+def resident_smem_bytes(cfg: GAConfig, i_local: int) -> int:
+    """Shared memory of one replica's resident epoch: `i_local` K2 blocks
+    of `epoch_smem_bytes`, one cluster (the quantity a planning budget
+    weighs, as the JAX package weighs `resident_vmem_bytes`)."""
+    return i_local * epoch_smem_bytes(cfg.n, cfg.v, cfg.p)
+
+
+def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True,
+                        budget: Optional[int] = None) -> Optional[str]:
     """None when a resident epoch of `i_local` islands runs on Hopper, else
     the limit that refuses it.  One K2 block holds one island, so the block
     must fit a block's shared memory; the ring makes a group's islands one
     thread-block cluster, so with `ring` it also needs i_local <=
-    MAX_CLUSTER.  The resident-free mode has no ring and no cluster."""
+    MAX_CLUSTER.  The resident-free mode has no ring and no cluster.  A
+    planning `budget` (`EngineOptions.smem_budget`) also refuses a
+    replica whose blocks take more than it (`resident_smem_bytes`)."""
     if ring and i_local > MAX_CLUSTER:
         return (f"resident epoch makes the {i_local} islands of a replica "
                 "one thread-block cluster for its ring, past the portable "
                 f"cluster size of {MAX_CLUSTER} on Hopper")
-    return epoch_smem_reason(cfg)
+    reason = epoch_smem_reason(cfg)
+    if reason is None and budget is not None:
+        need = resident_smem_bytes(cfg, i_local)
+        if need > budget:
+            reason = (f"resident epoch needs {need} B of shared memory for "
+                      f"{i_local} island(s) at N={cfg.n} (> smem_budget "
+                      f"{budget} B)")
+    return reason
 
 
 @functools.lru_cache(maxsize=None)
@@ -373,13 +394,19 @@ def tile_for_capacity(groups: int, islands: int, capacity: int) -> int:
 
 
 def streamed_tile_islands(cfg: GAConfig, groups: int = 1, islands: int = 1,
-                          device=None) -> Optional[int]:
+                          device=None, budget: Optional[int] = None
+                          ) -> Optional[int]:
     """The streamed lane's island tile for `groups` replica groups of
-    `islands` islands: None when one island does not fit a K3 block; on a
-    CPU device (no device given counts as the CPU) 1, since the plain
-    version ignores the tile; on a card `tile_for_capacity` at its
-    `streamed_capacity`."""
+    `islands` islands: None when one island does not fit a K3 block (or
+    the planning `budget`); on a CPU device (no device given counts as the
+    CPU) 1, since the plain version ignores the tile; on a card
+    `tile_for_capacity` at its `streamed_capacity`.  A K3 block walks its
+    tile's islands in turn, so unlike the JAX package's double-buffered
+    tile the budget does not bound T."""
     if epoch_smem_reason(cfg) is not None:
+        return None
+    if (budget is not None
+            and epoch_smem_bytes(cfg.n, cfg.v, cfg.p) > budget):
         return None
     if device is None or torch.device(device).type != "cuda":
         return 1
@@ -411,7 +438,8 @@ def streamed_tile_reason(cfg: GAConfig, groups: int, islands: int,
 def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
                           migration: str, gens_per_epoch: int,
                           migrate_every: int, groups: int = 1,
-                          device=None, sharded: bool = False) -> list:
+                          device=None, sharded: bool = False,
+                          budget: Optional[int] = None) -> list:
     """The launch shapes an island-ring spec can run on Hopper, ordered so
     candidates[0] is the heuristic choice.  The structure and the order are
     the JAX package's `epoch_mode_candidates` (they decide
@@ -421,7 +449,11 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
     `i_local` is the islands of one shard; `sharded` (a mesh) turns the
     resident mode into resident-sharded, one interval a launch with the
     boundary elite crossing shards between launches, and offers no
-    resident-free.
+    resident-free.  A planning `budget` in bytes (`EngineOptions.
+    smem_budget`) refuses the resident shapes whose blocks exceed it and
+    offers the streamed mode where one K3 block fits it, as the JAX
+    package's VMEM budget does; None leaves every list as the card's own
+    limits give it.
 
     Each candidate is a plan dict: {"mode", "lane", "epochs_per_launch",
     "gens_per_launch"} (+ "fallback", the limit that refused the resident
@@ -434,9 +466,10 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
         return [gridded]
     k = max(1, gens_per_epoch // migrate_every)
     if migration == "ring" and gens_per_epoch >= migrate_every:
-        reason = resident_fit_reason(cfg, i_local)
+        reason = resident_fit_reason(cfg, i_local, budget=budget)
         if reason is not None:
-            tile = streamed_tile_islands(cfg, groups, i_local, device)
+            tile = streamed_tile_islands(cfg, groups, i_local, device,
+                                         budget)
             if tile is None:
                 return [dict(gridded, fallback=reason)]
             return [{"mode": "streamed", "lane": cfg.sel_lane,
@@ -455,9 +488,11 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
             and not sharded):
         # no ring: gridded stays the heuristic; resident-free (or, past the
         # block, a streamed tile) is offered for plan_override to pick
-        reason = resident_fit_reason(cfg, i_local, ring=False)
+        reason = resident_fit_reason(cfg, i_local, ring=False,
+                                     budget=budget)
         if reason is not None:
-            tile = streamed_tile_islands(cfg, groups, i_local, device)
+            tile = streamed_tile_islands(cfg, groups, i_local, device,
+                                         budget)
             out = [dict(gridded, fallback=reason)]
             if tile is not None:
                 out.append({"mode": "streamed", "lane": cfg.sel_lane,

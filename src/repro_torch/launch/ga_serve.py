@@ -30,7 +30,8 @@ distinct seeds (and, for K >= 3, one higher-priority rastrigin job that
 preempts them) without needing a file.
 
 The port of the JAX package's `repro.launch.ga_serve`, with the same
-flags less `--vmem-budget` (see `EngineOptions.add_cli_args`); `--device`
+flags, `--vmem-budget` as `--smem-budget` (see
+`EngineOptions.add_cli_args`); `--device`
 picks the card (the default) or the CPU, `--mesh` shards the island axis
 of every job over devices of that kind (`repro_torch.launch.mesh`), and
 `--cost-table` a measured table (`python -m

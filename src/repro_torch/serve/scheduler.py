@@ -185,8 +185,8 @@ class GAScheduler:
     discovers the ambient table, False disables, a path or CostTable pins
     one (it may also ride in `options.cost_table`, but not in both).
     Engine knobs arrive as one `ga.EngineOptions` via `options=` — the
-    device, and the plan, tile, lane and fault knobs of every packed
-    launch.
+    device, and the plan, planning budget, tile, lane and fault knobs of
+    every packed launch.
     """
 
     def __init__(self, *, mesh=None,

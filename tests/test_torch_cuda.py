@@ -478,6 +478,96 @@ def test_fused_islands_plans_match_islands_on_card(cuda_device, problem):
             _assert_same_solve(got, ref, traj=plan != "resident-free")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("islands", [2, 4, 8])
+@pytest.mark.parametrize("problem", ["F3", "rosenbrock:5", "sphere:8"])
+def test_budgeted_streamed_plan_matches_islands_on_card(cuda_device,
+                                                        problem, islands):
+    """Under a planning budget of one island fewer than a group's K2
+    blocks, K3 runs at 8 islands or fewer (two intervals a launch, the
+    ring inside) and equals `islands`, its trajectory folded a launch."""
+    kw = dict(problem=problem, n_islands=islands, n_repeats=2,
+              gens_per_epoch=10)
+    cfg = ga.GASpec(**dict(dict(n=64, bits_per_var=10, mode="arith",
+                                mutation_rate=0.05), **kw)).ga_config()
+    budget = K.resident_smem_bytes(cfg, islands - 1)
+    ref = _island_solve("islands", **kw)
+    before = K.LAUNCHES["ga_streamed_epoch"]
+    got = ga.solve(ref.spec, backend="fused-islands",
+                   options=ga.EngineOptions(smem_budget=budget))
+    assert got.telemetry.plan.mode == "streamed"
+    assert got.telemetry.plan.tile_islands == K.streamed_tile_islands(
+        cfg, 2, islands, cuda_device, budget)
+    assert K.LAUNCHES["ga_streamed_epoch"] == before + 2
+    _assert_same_solve(got, ref, traj=False)
+    fold = np.minimum(ref.traj_best[0::2], ref.traj_best[1::2])
+    np.testing.assert_array_equal(got.traj_best, fold)
+
+
+def _paper_stack(cfg, replicas, device):
+    return _stack(cfg, replicas, torch.device("cpu")), \
+        _stack(cfg, replicas, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_ops_on_card_match_cpu(cuda_device, n):
+    """Each `kernels.ops` wrapper on a card tensor launches its kernel and
+    equals the same wrapper on a CPU tensor (its plain twin): the paper's
+    F1-F3 at every N of its grid, words bit-exact, y and best within
+    ``1e-6 * max|y|`` (the CPU's float32 sqrt may round F3 an ulp
+    apart)."""
+    from repro_torch.configs import ga_paper as TP
+    from repro_torch.kernels import ops
+    for problem, m in zip(("F1", "F2", "F3"), TP.BIT_WIDTHS[::2]):
+        cfg = TP.paper_config(n=n, m=m, mode="arith")
+        prog = TF.compile_program(problem=problem, bits_per_var=cfg.c)
+        cpu, card = _paper_stack(cfg, 10, cuda_device)
+        run = dict(cfg=cfg, program=prog, gens=TP.K_GENERATIONS,
+                   track_best=True)
+        before = K.LAUNCHES["ga_generation"]
+        got = ops.ga_generation(card.x, card.sel_lfsr, card.cross_lfsr,
+                                card.mut_lfsr, **run)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["ga_generation"] == before + 1
+        want = ops.ga_generation(cpu.x, cpu.sel_lfsr, cpu.cross_lfsr,
+                                 cpu.mut_lfsr, **run)
+        for i, (a, b) in enumerate(zip(got, want)):
+            a, b = a.cpu().numpy(), b.numpy()
+            if i in (4, 5):
+                assert np.max(np.abs(a - b)) <= Y_TOL * np.max(np.abs(b))
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"output {i}")
+        before = K4.LAUNCHES["lfsr_advance"]
+        for bank in ("sel_lfsr", "cross_lfsr", "mut_lfsr"):
+            a = ops.lfsr_advance(getattr(card, bank), 3 * TP.K_GENERATIONS)
+            b = ops.lfsr_advance(getattr(cpu, bank), 3 * TP.K_GENERATIONS)
+            assert torch.equal(a.cpu(), b)
+        assert K4.LAUNCHES["lfsr_advance"] == before + 3
+    cfg = TP.paper_config(n=64, m=20, mode="arith")
+    prog = TF.compile_program(problem="F3", bits_per_var=cfg.c)
+    cpu, card = (tuple(t.reshape((2, 4) + t.shape[1:]) for t in
+                       (s.x, s.sel_lfsr, s.cross_lfsr, s.mut_lfsr))
+                 for s in _paper_stack(cfg, 8, cuda_device))
+    for kw in (dict(intervals=2), dict(boundary=True)):
+        before = K.LAUNCHES["ga_epoch"]
+        got = ops.ga_epoch(*card, cfg=cfg, program=prog, migrate_every=5,
+                           **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["ga_epoch"] == before + 1
+        want = ops.ga_epoch(*cpu, cfg=cfg, program=prog, migrate_every=5,
+                            **kw)
+        for i, (a, b) in enumerate(zip(got, want)):
+            a, b = a.cpu().numpy(), b.numpy()
+            if i in (4, 5):
+                assert np.max(np.abs(a - b)) <= Y_TOL * np.max(np.abs(b))
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"output {i}")
+    with pytest.raises(ValueError, match="requires mode='arith'"):
+        ops.ga_generation(card[0][0], card[1][0], card[2][0], card[3][0],
+                          cfg=TP.paper_config(n=64, m=20), program=prog)
+
+
 # ---------------------------------------------------------------------------
 # Packs, chunks and checkpoints on the card
 # ---------------------------------------------------------------------------

@@ -60,6 +60,12 @@ def test_port_files_found():
     assert {"src/repro_torch/launch/mesh.py",
             "scripts/torch_scheduler_smoke.py",
             "scripts/torch_chaos_smoke.py"} <= rel
+    # and the GA side's last modules and smokes
+    assert {"src/repro_torch/kernels/ops.py",
+            "src/repro_torch/configs/ga_paper.py",
+            "src/repro_torch/roofline.py",
+            "scripts/torch_streaming_smoke.py",
+            "scripts/torch_autotune_smoke.py"} <= rel
     # and the LM serving path, its launcher and the examples
     assert {"src/repro_torch/configs/base.py",
             "src/repro_torch/configs/__init__.py",
