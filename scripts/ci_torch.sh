@@ -50,4 +50,9 @@ echo "== streaming smoke (8 islands through the streamed mode under a"
 echo "   planning shared-memory budget; bit-identical to islands) =="
 timeout 420 python scripts/torch_streaming_smoke.py --device "$DEVICE"
 
+echo "== dry-run smoke (one cell on the meta mesh: no allocation, no"
+echo "   kernel; runs on the host whatever DEVICE is) =="
+timeout 300 python -m repro_torch.launch.dryrun --arch minitron-8b \
+    --shape train_4k --mesh pod1 --out artifacts/dryrun_results_torch
+
 echo "CI OK"

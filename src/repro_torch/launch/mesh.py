@@ -1,4 +1,5 @@
-"""Device meshes for the island ring.
+"""Device meshes: the island ring's, the LM's logical-axis meshes and
+the dry run's.
 
 A `Mesh` is an array of torch devices with named axes, shaped like the
 JAX package's `jax.sharding.Mesh`: `devices` (a numpy object array of
@@ -23,8 +24,14 @@ package's tests run theirs on XLA's fake host devices.
 `parse_mesh` and `make_island_mesh` count real devices
 (`torch.cuda.device_count()`, or 1 for the CPU) and refuse a mesh larger
 than that, as the JAX package refuses one larger than `jax.devices()`.
-The JAX module's production meshes and TPU constants have no counterpart
-here.
+
+`make_production_mesh` keeps the JAX package's shapes: (16, 16) as
+("data", "model"), and (2, 16, 16) with a leading "pod" axis.  It takes
+the devices it is given (logical shards, or `torch.device("meta")`
+positions: the dry run's placeholders, the counterpart of JAX's 512 fake
+host devices) or every real card, and refuses fewer than it needs.  The
+hardware constants below are one NVIDIA H100's datasheet figures, which
+the dry run's roofline divides by.
 """
 
 from __future__ import annotations
@@ -56,9 +63,9 @@ class Mesh:
         if self.devices.size == 0:
             raise ValueError("a mesh needs at least one device")
         kinds = {d.type for d in flat}
-        if not kinds <= {"cpu", "cuda"} or len(kinds) != 1:
-            raise ValueError(f"a mesh holds CUDA devices or the CPU, one "
-                             f"kind, got {sorted(kinds)}")
+        if not kinds <= {"cpu", "cuda", "meta"} or len(kinds) != 1:
+            raise ValueError(f"a mesh holds CUDA devices, the CPU or meta "
+                             f"positions, one kind, got {sorted(kinds)}")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -72,6 +79,11 @@ class Mesh:
     def first_device(self) -> torch.device:
         """Where the engine keeps a sharded run's state between segments."""
         return self.devices.flat[0]
+
+    def device_at(self, **coords: int) -> torch.device:
+        """The device at the given axis coordinates, the other axes at 0."""
+        index = tuple(int(coords.get(a, 0)) for a in self.axis_names)
+        return self.devices[index]
 
     def shards(self, axes: Sequence[str]) -> int:
         """How many shards the island axis makes over `axes`."""
@@ -117,6 +129,11 @@ def _devices(n: Optional[int], kind: str) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def local_devices(kind: str = "cuda") -> List[torch.device]:
+    """Every real device of `kind` on this host (the CPU is one)."""
+    return _devices(None, kind) if device_count(kind) else []
+
+
 def make_island_mesh(n_devices: Optional[int] = None, *,
                      device: str = "cuda") -> Mesh:
     """A 1-D ("islands",) mesh over the first `n_devices` devices of the
@@ -149,6 +166,40 @@ def parse_mesh(spec: str, *, device: str = "cuda") -> Mesh:
     devs = _devices(int(np.prod(dims)), device)
     return Mesh(np.asarray(devs, dtype=object).reshape(dims),
                 _MESH_AXIS_NAMES[len(dims)])
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The JAX package's production shapes: (data=16, model=16), or with
+    `multi_pod` (pod=2, data=16, model=16), over the first 256 or 512 of
+    `devices` (default every card).  Fewer devices raise `ValueError`, as
+    `jax.make_mesh` refuses."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    devices = list(local_devices() if devices is None else devices)
+    if len(devices) < need:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {need} "
+                         f"devices, have {len(devices)}")
+    return Mesh(np.asarray(devices[:need], dtype=object).reshape(shape),
+                axes)
+
+
+def logical_mesh(device, shape: Sequence[int]) -> Mesh:
+    """`prod(shape)` logical shards of one `device`, with `parse_mesh`'s
+    axis names: (n,) is ("islands",), (d, m) ("data", "model"), and a
+    3-D shape adds "pod"."""
+    shape = tuple(int(n) for n in shape)
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [torch.device(device)] * devs.size
+    return Mesh(devs.reshape(shape), _MESH_AXIS_NAMES[len(shape)])
+
+
+# One NVIDIA H100 80GB HBM3 (SXM5, 700.00 W), NVIDIA's datasheet: the
+# roofline of `repro_torch.roofline.analyze_cell` divides by these.
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12                # B/s
+NVLINK_BW = 450e9               # B/s, NVLink 4, one direction
 
 
 MESH_HELP = ("shard the island axis over devices: 'auto' (all), '4', "

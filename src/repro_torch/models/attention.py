@@ -42,18 +42,20 @@ class AttnConfig:
 def attn_defs(cfg: AttnConfig) -> Dict[str, C.ParamDef]:
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
-        "wq": C.ParamDef((d, h, hd)),
-        "wk": C.ParamDef((d, kh, hd)),
-        "wv": C.ParamDef((d, kh, hd)),
-        "wo": C.ParamDef((h, hd, d)),
+        "wq": C.ParamDef((d, h, hd), ("embed", "heads", None)),
+        "wk": C.ParamDef((d, kh, hd), ("embed", "kv_heads", None)),
+        "wv": C.ParamDef((d, kh, hd), ("embed", "kv_heads", None)),
+        "wo": C.ParamDef((h, hd, d), ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = C.ParamDef((h, hd), init="zeros")
-        defs["bk"] = C.ParamDef((kh, hd), init="zeros")
-        defs["bv"] = C.ParamDef((kh, hd), init="zeros")
+        defs["bq"] = C.ParamDef((h, hd), ("heads", None), init="zeros")
+        defs["bk"] = C.ParamDef((kh, hd), ("kv_heads", None),
+                               init="zeros")
+        defs["bv"] = C.ParamDef((kh, hd), ("kv_heads", None),
+                               init="zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = C.ParamDef((hd,), init="zeros")
-        defs["k_norm"] = C.ParamDef((hd,), init="zeros")
+        defs["q_norm"] = C.ParamDef((hd,), (None,), init="zeros")
+        defs["k_norm"] = C.ParamDef((hd,), (None,), init="zeros")
     return defs
 
 
@@ -184,8 +186,9 @@ def cache_defs(cfg: AttnConfig, batch: int, max_len: int
     position p ≡ i (mod W), so at decode position `pos` the live positions
     are (pos-W, pos], recovered in closed form; as cross K/V, `enc_seq`."""
     kh, hd = cfg.n_kv_heads, cfg.head_dim
-    return {"k": C.ParamDef((batch, max_len, kh, hd), init="zeros"),
-            "v": C.ParamDef((batch, max_len, kh, hd), init="zeros")}
+    axes = ("batch", "act_seq", "kv_heads", None)
+    return {"k": C.ParamDef((batch, max_len, kh, hd), axes, init="zeros"),
+            "v": C.ParamDef((batch, max_len, kh, hd), axes, init="zeros")}
 
 
 class Attention(C.ParamModule):

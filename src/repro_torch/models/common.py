@@ -4,8 +4,12 @@ norms, RoPE.
 The JAX package's `repro.models.common`.  A block is a `ParamModule`: an
 `nn.Module` whose parameters are named as the JAX package's leaves and are
 made from a table of `ParamDef`s by an `Init`, which says the device, the
-dtype and the seeded `torch.Generator` they are drawn from.  Logical
-sharding axes have no counterpart on one card and are left out.
+dtype and the seeded `torch.Generator` they are drawn from.  Each
+`ParamDef` carries the JAX package's logical sharding axes, leaf for
+leaf; `spec_tree` turns them into `repro_torch.sharding` specs under the
+active mesh (which slice of a leaf each shard holds: a spec places data,
+it never changes a value), and `abstract_params` gives meta tensors, the
+JAX package's `ShapeDtypeStruct`s, for the dry run.
 
     init = Init(torch.bfloat16, torch.device("cuda"),
                 torch.Generator("cuda").manual_seed(0))
@@ -24,13 +28,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import sharding as SH
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axes, same rank as shape
     init: str = "normal"              # normal | zeros | ones
     dtype: Optional[torch.dtype] = None   # None: the model's dtype
     scale: Optional[float] = None     # override stddev
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
 
 
 def stddev(d: ParamDef) -> float:
@@ -80,8 +91,45 @@ class ParamModule(nn.Module):
     def __init__(self, defs: Dict[str, ParamDef], init: Init):
         super().__init__()
         for name, d in defs.items():
-            self.register_parameter(
-                name, nn.Parameter(init.tensor(d), requires_grad=False))
+            register_param(self, name, d, init)
+
+
+def register_param(module: nn.Module, name: str, d: ParamDef, init: Init
+                   ) -> None:
+    """Register parameter `name` of `module`, made from `d` by `init`, and
+    keep `d` in the module's `param_defs`."""
+    module.__dict__.setdefault("param_defs", {})[name] = d
+    module.register_parameter(
+        name, nn.Parameter(init.tensor(d), requires_grad=False))
+
+
+def module_defs(module: nn.Module) -> Dict[str, ParamDef]:
+    """The `ParamDef` of every parameter of `module`, by its name there
+    (in `named_parameters` order); a parameter made without one raises
+    `KeyError`."""
+    defs = {}
+    for prefix, m in module.named_modules():
+        for n, d in getattr(m, "param_defs", {}).items():
+            defs[f"{prefix}.{n}" if prefix else n] = d
+    return {n: defs[n] for n, _ in module.named_parameters()}
+
+
+def axes_tree(defs: Dict[str, ParamDef]) -> Dict[str, Tuple]:
+    return {n: d.axes for n, d in defs.items()}
+
+
+def spec_tree(defs: Dict[str, ParamDef]) -> Dict[str, SH.PartitionSpec]:
+    """Each leaf's spec under the active rules, with the divisibility
+    fallback of `sharding.logical_spec` (its shape given)."""
+    return {n: SH.logical_spec(d.axes, d.shape) for n, d in defs.items()}
+
+
+def abstract_params(defs: Dict[str, ParamDef], dtype: torch.dtype
+                    ) -> Dict[str, torch.Tensor]:
+    """Meta tensors of every leaf (the model's `dtype` where the def names
+    none): the JAX package's `ShapeDtypeStruct`s; nothing is allocated."""
+    return {n: torch.empty(d.shape, dtype=d.dtype or dtype, device="meta")
+            for n, d in defs.items()}
 
 
 def zeros_tree(defs: Any, dtype: torch.dtype, device) -> Any:

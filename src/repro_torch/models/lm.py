@@ -118,10 +118,10 @@ def zamba_groups(cfg: ModelConfig) -> int:
 class Norm(C.ParamModule):
     def __init__(self, d: int, cfg: ModelConfig, init: C.Init):
         if cfg.norm == "rms":
-            defs = {"w": C.ParamDef((d,), init="zeros")}
+            defs = {"w": C.ParamDef((d,), (None,), init="zeros")}
         else:
-            defs = {"w": C.ParamDef((d,), init="ones"),
-                    "b": C.ParamDef((d,), init="zeros")}
+            defs = {"w": C.ParamDef((d,), (None,), init="ones"),
+                    "b": C.ParamDef((d,), (None,), init="zeros")}
         super().__init__(defs, init)
         self.kind = cfg.norm
 
@@ -280,16 +280,15 @@ class LM(nn.Module):
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_
 
-        def param(shape, **kw):
-            return nn.Parameter(init.tensor(C.ParamDef(shape, **kw)),
-                                requires_grad=False)
+        def param(name, shape, axes, **kw):
+            C.register_param(self, name, C.ParamDef(shape, axes, **kw), init)
 
         # 1/sqrt(d) keeps tied-head logits unit-scale; tied inputs are
         # re-scaled by sqrt(d) in embed_tokens() (gemma convention)
-        self.embed = param((v, d), scale=d ** -0.5)
+        param("embed", (v, d), ("vocab", "embed"), scale=d ** -0.5)
         self.final_norm = Norm(d, cfg, init)
         if not cfg.tie_embeddings:
-            self.lm_head = param((d, v))
+            param("lm_head", (d, v), ("embed", "vocab"))
 
         fam = cfg.family
         if fam in ("dense", "vlm"):
@@ -318,7 +317,7 @@ class LM(nn.Module):
             self.enc_norm = Norm(d, cfg, init)
             self.dec_layers = nn.ModuleList(AudioDecoderLayer(cfg, init)
                                             for _ in range(cfg.n_layers))
-            self.dec_pos = param((max_seq, d), scale=0.01)
+            param("dec_pos", (max_seq, d), (None, "embed"), scale=0.01)
         elif fam in ("ssm", "hybrid"):
             self.layers = nn.ModuleList(SSMLayer(cfg, init)
                                         for _ in range(cfg.n_layers))
@@ -501,6 +500,15 @@ def init_params(cfg: ModelConfig, max_seq: int = 4096, *, device,
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def model_defs(cfg: ModelConfig, max_seq: int = 4096
+               ) -> Dict[str, C.ParamDef]:
+    """Every parameter's `ParamDef` by its port name (the JAX package's
+    `model_defs`, one entry a layer where it stacks): the model is made
+    on the meta device, so nothing is allocated."""
+    return C.module_defs(LM(cfg, C.Init(cfg.torch_dtype,
+                                        torch.device("meta")), max_seq))
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:

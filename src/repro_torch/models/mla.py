@@ -42,24 +42,28 @@ class MLAConfig:
 def mla_defs(cfg: MLAConfig) -> Dict[str, C.ParamDef]:
     d, h = cfg.d_model, cfg.n_heads
     return {
-        "w_dq": C.ParamDef((d, cfg.q_lora_rank)),
-        "q_norm": C.ParamDef((cfg.q_lora_rank,), init="zeros"),
-        "w_uq": C.ParamDef((cfg.q_lora_rank, h, cfg.qk_dim)),
-        "w_dkv": C.ParamDef((d, cfg.kv_lora_rank)),
-        "kv_norm": C.ParamDef((cfg.kv_lora_rank,), init="zeros"),
-        "w_uk": C.ParamDef((cfg.kv_lora_rank, h, cfg.qk_nope_dim)),
-        "w_uv": C.ParamDef((cfg.kv_lora_rank, h, cfg.v_head_dim)),
-        "w_kr": C.ParamDef((d, cfg.qk_rope_dim)),
-        "wo": C.ParamDef((h, cfg.v_head_dim, d)),
+        "w_dq": C.ParamDef((d, cfg.q_lora_rank), ("embed", None)),
+        "q_norm": C.ParamDef((cfg.q_lora_rank,), (None,), init="zeros"),
+        "w_uq": C.ParamDef((cfg.q_lora_rank, h, cfg.qk_dim),
+                          (None, "heads", None)),
+        "w_dkv": C.ParamDef((d, cfg.kv_lora_rank), ("embed", None)),
+        "kv_norm": C.ParamDef((cfg.kv_lora_rank,), (None,), init="zeros"),
+        "w_uk": C.ParamDef((cfg.kv_lora_rank, h, cfg.qk_nope_dim),
+                          (None, "heads", None)),
+        "w_uv": C.ParamDef((cfg.kv_lora_rank, h, cfg.v_head_dim),
+                          (None, "heads", None)),
+        "w_kr": C.ParamDef((d, cfg.qk_rope_dim), ("embed", None)),
+        "wo": C.ParamDef((h, cfg.v_head_dim, d), ("heads", None, "embed")),
     }
 
 
 def cache_defs(cfg: MLAConfig, batch: int, max_len: int
                ) -> Dict[str, C.ParamDef]:
     return {
-        "c_kv": C.ParamDef((batch, max_len, cfg.kv_lora_rank), init="zeros"),
+        "c_kv": C.ParamDef((batch, max_len, cfg.kv_lora_rank),
+                           ("batch", "act_seq", None), init="zeros"),
         "k_rope": C.ParamDef((batch, max_len, cfg.qk_rope_dim),
-                             init="zeros"),
+                             ("batch", "act_seq", None), init="zeros"),
     }
 
 

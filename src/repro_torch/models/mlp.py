@@ -13,9 +13,9 @@ from repro_torch.models import common as C
 
 def gated_defs(d_model: int, d_ff: int) -> Dict[str, C.ParamDef]:
     return {
-        "w_gate": C.ParamDef((d_model, d_ff)),
-        "w_up": C.ParamDef((d_model, d_ff)),
-        "w_down": C.ParamDef((d_ff, d_model)),
+        "w_gate": C.ParamDef((d_model, d_ff), ("embed", "mlp")),
+        "w_up": C.ParamDef((d_model, d_ff), ("embed", "mlp")),
+        "w_down": C.ParamDef((d_ff, d_model), ("mlp", "embed")),
     }
 
 
@@ -32,10 +32,10 @@ class GatedMLP(C.ParamModule):
 
 def plain_defs(d_model: int, d_ff: int) -> Dict[str, C.ParamDef]:
     return {
-        "w_in": C.ParamDef((d_model, d_ff)),
-        "b_in": C.ParamDef((d_ff,), init="zeros"),
-        "w_out": C.ParamDef((d_ff, d_model)),
-        "b_out": C.ParamDef((d_model,), init="zeros"),
+        "w_in": C.ParamDef((d_model, d_ff), ("embed", "mlp")),
+        "b_in": C.ParamDef((d_ff,), ("mlp",), init="zeros"),
+        "w_out": C.ParamDef((d_ff, d_model), ("mlp", "embed")),
+        "b_out": C.ParamDef((d_model,), ("embed",), init="zeros"),
     }
 
 

@@ -41,10 +41,10 @@ class MoEConfig:
 def moe_defs(cfg: MoEConfig) -> Dict[str, C.ParamDef]:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_ff
     return {
-        "router": C.ParamDef((d, e), dtype=torch.float32),
-        "w_gate": C.ParamDef((e, d, f)),
-        "w_up": C.ParamDef((e, d, f)),
-        "w_down": C.ParamDef((e, f, d)),
+        "router": C.ParamDef((d, e), ("embed", None), dtype=torch.float32),
+        "w_gate": C.ParamDef((e, d, f), ("expert", "embed", None)),
+        "w_up": C.ParamDef((e, d, f), ("expert", "embed", None)),
+        "w_down": C.ParamDef((e, f, d), ("expert", None, "embed")),
     }
 
 
@@ -52,6 +52,22 @@ def capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
     c = int(math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor
                       / cfg.n_experts))
     return max(c, cfg.top_k)
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (G, S, D) -> (weights (G,S,k), idx (G,S,k), aux_loss scalar)."""
+    # operands in the activation dtype, products summed in float32
+    # (`preferred_element_type=f32`): bf16 values are exact in float32
+    logits = torch.matmul(x.float(), router_w.to(x.dtype).float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, idx = vals[..., :cfg.top_k], order[..., :cfg.top_k]
+    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx[..., 0], cfg.n_experts).float().mean(dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(me * ce)
+    return weights.to(x.dtype), idx, aux
 
 
 class MoE(C.ParamModule):
@@ -64,19 +80,7 @@ class MoE(C.ParamModule):
     def route(self, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: (G, S, D) -> (weights (G,S,k), idx (G,S,k), aux_loss)."""
-        cfg = self.cfg
-        # operands in the activation dtype, products summed in float32
-        # (`preferred_element_type=f32`): bf16 values are exact in float32
-        logits = torch.matmul(x.float(), self.router.to(x.dtype).float())
-        probs = torch.softmax(logits, dim=-1)
-        vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-        weights, idx = vals[..., :cfg.top_k], order[..., :cfg.top_k]
-        weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True),
-                                            1e-9)
-        me = probs.mean(dim=(0, 1))
-        ce = F.one_hot(idx[..., 0], cfg.n_experts).float().mean(dim=(0, 1))
-        aux = cfg.n_experts * torch.sum(me * ce)
-        return weights.to(x.dtype), idx, aux
+        return route(self.router, x, self.cfg)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, S, D). Returns (out, aux_loss). B is the routing group."""

@@ -53,23 +53,28 @@ class SSMConfig:
 def ssm_defs(cfg: SSMConfig) -> Dict[str, C.ParamDef]:
     d, f32 = cfg.d_model, torch.float32
     return {
-        "in_proj": C.ParamDef((d, cfg.in_proj_dim)),
-        "conv_w": C.ParamDef((cfg.conv_width, cfg.conv_channels), scale=0.2),
-        "conv_b": C.ParamDef((cfg.conv_channels,), init="zeros"),
-        "a_log": C.ParamDef((cfg.n_heads,), init="zeros", dtype=f32),
-        "dt_bias": C.ParamDef((cfg.n_heads,), init="zeros", dtype=f32),
-        "d_skip": C.ParamDef((cfg.n_heads,), init="ones", dtype=f32),
-        "norm_w": C.ParamDef((cfg.d_inner,), init="zeros"),
-        "out_proj": C.ParamDef((cfg.d_inner, d)),
+        "in_proj": C.ParamDef((d, cfg.in_proj_dim), ("embed", "mlp")),
+        "conv_w": C.ParamDef((cfg.conv_width, cfg.conv_channels),
+                             (None, "mlp"), scale=0.2),
+        "conv_b": C.ParamDef((cfg.conv_channels,), ("mlp",), init="zeros"),
+        "a_log": C.ParamDef((cfg.n_heads,), ("heads",), init="zeros",
+                            dtype=f32),
+        "dt_bias": C.ParamDef((cfg.n_heads,), ("heads",), init="zeros",
+                              dtype=f32),
+        "d_skip": C.ParamDef((cfg.n_heads,), ("heads",), init="ones",
+                             dtype=f32),
+        "norm_w": C.ParamDef((cfg.d_inner,), ("mlp",), init="zeros"),
+        "out_proj": C.ParamDef((cfg.d_inner, d), ("mlp", "embed")),
     }
 
 
 def cache_defs(cfg: SSMConfig, batch: int) -> Dict[str, C.ParamDef]:
     return {
         "state": C.ParamDef((batch, cfg.n_heads, cfg.d_state, cfg.headdim),
-                            init="zeros", dtype=torch.float32),
+                            ("batch", "heads", None, None), init="zeros",
+                            dtype=torch.float32),
         "conv": C.ParamDef((batch, cfg.conv_width - 1, cfg.conv_channels),
-                           init="zeros"),
+                           ("batch", None, "mlp"), init="zeros"),
     }
 
 

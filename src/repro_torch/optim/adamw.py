@@ -37,7 +37,8 @@ order and the clip factor may part from JAX's by an ulp.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Mapping, NamedTuple, Tuple, Union
+from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -70,6 +71,9 @@ class QTensor:
     scale: torch.Tensor
     shape: Tuple[int, ...] = ()
     npad: int = 0
+
+    # the JAX pytree's children (`shape`, `npad` are its static data)
+    tree_fields = ("q", "scale")
 
 
 class AdamState(NamedTuple):
@@ -166,7 +170,9 @@ def _sum_squares(g: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.cat(per_row))
 
 
-def _global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every leaf's `_sum_squares`, in the order of
+    `grads`, on the first leaf's device."""
     leaves = [_sum_squares(g) for g in grads.values()]
     dev = leaves[0].device
     return _sqrt(torch.sum(torch.stack([t.to(dev) for t in leaves])))
@@ -239,15 +245,20 @@ def bias_corrections(step: int, cfg: AdamWConfig) -> Tuple[np.float32,
 @torch.no_grad()
 def update(params: Mapping[str, torch.Tensor],
            grads: Dict[str, torch.Tensor], state: AdamState,
-           cfg: AdamWConfig) -> Tuple[AdamState, Dict[str, torch.Tensor]]:
+           cfg: AdamWConfig, gnorm: Optional[torch.Tensor] = None
+           ) -> Tuple[AdamState, Dict[str, torch.Tensor]]:
     """One AdamW step.  `params` (name -> tensor) and the moments of
     `state` change in place; `grads` (name -> tensor, the same names) is
-    emptied as the leaves are updated.  Returns (new state, {"grad_norm"})."""
+    emptied as the leaves are updated.  `gnorm` is the global gradient
+    norm where the caller has taken it (over the whole gradient, before
+    it cut the leaves into slices); by default `global_norm` of `grads`.
+    Returns (new state, {"grad_norm"})."""
     names = list(params)
     if set(grads) != set(names):
         raise KeyError(f"grads name {sorted(set(grads) ^ set(names))[:4]} "
                        "that params do not, or the other way round")
-    gnorm = _global_norm({n: grads[n] for n in names})
+    if gnorm is None:
+        gnorm = global_norm({n: grads[n] for n in names})
     dev = gnorm.device
     step = state.step + 1
     bc1, bc2 = bias_corrections(step, cfg)
@@ -269,3 +280,16 @@ def update(params: Mapping[str, torch.Tensor],
         _update_leaf(p, grads.pop(n), state.m[n], state.v[n], on(p.device),
                      cfg)
     return AdamState(step, state.m, state.v), {"grad_norm": gnorm}
+
+
+def state_axes(param_axes: Mapping[str, Tuple], cfg: AdamWConfig
+               ) -> AdamState:
+    """Logical axes of the optimizer state, the JAX package's: 32-bit
+    moments mirror the parameters' axes; in 8-bit mode every moment is a
+    `QTensor` whose `q` and `scale` take (None, None), so the moments stay
+    whole."""
+    if cfg.state_bits == 8:
+        q_axes = QTensor(q=(None, None), scale=(None, None), shape=(), npad=0)
+        return AdamState(step=(), m={n: q_axes for n in param_axes},
+                         v={n: q_axes for n in param_axes})
+    return AdamState(step=(), m=dict(param_axes), v=dict(param_axes))

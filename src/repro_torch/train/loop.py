@@ -11,7 +11,15 @@ card unless the caller asks for the CPU.
   * preemption safety: SIGTERM/SIGINT stop the run after the current step,
     and a last synchronous save follows;
   * straggler watchdog: an EMA of the step time flags steps slower than
-    `watchdog_factor` x the average; here it logs and counts.
+    `watchdog_factor` x the average; here it logs and counts;
+  * a device mesh (`mesh=`): the run goes under `sharding.use_mesh(mesh)`;
+    the batch splits over the "batch" rule's shards and the parameters and
+    32-bit moments are held as slices between steps
+    (`repro_torch.train.sharded`);
+  * elastic restart: a checkpoint holds whole arrays, restored onto the
+    run's device (the mesh's first) and cut into the slices of the
+    restoring run's mesh, so a run saved under one mesh resumes under
+    another, or under none.
 
 A checkpoint is the JAX package's training checkpoint, key for key:
 ``params/...`` in the stacked layout, ``opt/.step``, ``opt/.m/...`` and
@@ -25,8 +33,7 @@ in-place update may have run part way) it writes nothing more, and a
 resumed run that has no step left to take writes no new step.
 
 The host clock runs up to a `torch.cuda.synchronize` around each step, as
-the JAX loop blocks on the loss.  The device mesh of the JAX loop
-(`mesh=`) is not carried over.
+the JAX loop blocks on the loss.
 """
 
 from __future__ import annotations
@@ -39,12 +46,14 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.ckpt import checkpoint as CKPT
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.models import convert as CV
 from repro_torch.models import lm as LM
 from repro_torch.optim import adamw as OPT
+from repro_torch.train import sharded as SHT
 from repro_torch.train import step as TS
 
 
@@ -119,28 +128,45 @@ def batch_to(batch: Dict[str, np.ndarray], device: torch.device
     return out
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def train(model_cfg: ModelConfig, tcfg: TrainConfig,
           data_cfg: Optional[DataConfig] = None,
           opt_cfg: Optional[OPT.AdamWConfig] = None, *,
-          device=None, log_fn: Callable[[str], None] = print
+          mesh=None, device=None, log_fn: Callable[[str], None] = print
           ) -> Dict[str, Any]:
     """Run (or resume) a training job on `device` (default the card; raises
-    without one), from `LM.init_params(seed=tcfg.seed)`.  Returns the final
-    metrics, the loss history, each step's host-clock seconds ("step_s"),
-    the trained LM under "params" and its AdamW state under
-    "opt_state"."""
+    without one), or over `mesh` (a `repro_torch.launch.mesh.Mesh`; the
+    run's device is then the mesh's first), from
+    `LM.init_params(seed=tcfg.seed)`.  Returns the final metrics, the loss
+    history, each step's host-clock seconds ("step_s"), the trained LM
+    under "params" and its AdamW state under "opt_state" (whole, on the
+    run's device, after a mesh run too)."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.first_device:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.first_device}")
+        device = mesh.first_device
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
                            "False); pass device='cpu' to train on the CPU")
+    with SH.use_mesh(mesh):
+        return _train(model_cfg, tcfg, data_cfg, opt_cfg, mesh, dev, log_fn)
+
+
+def _train(model_cfg: ModelConfig, tcfg: TrainConfig,
+           data_cfg: Optional[DataConfig],
+           opt_cfg: Optional[OPT.AdamWConfig], mesh, dev: torch.device,
+           log_fn: Callable[[str], None]) -> Dict[str, Any]:
     opt_cfg = opt_cfg or OPT.AdamWConfig()
     data_cfg = data_cfg or DataConfig(
         vocab=model_cfg.vocab_, seq_len=128, global_batch=8)
+    devices = (set(mesh.devices.flat) if mesh is not None else {dev})
 
     model = LM.init_params(model_cfg, max_seq=data_cfg.seq_len, device=dev,
                            seed=tcfg.seed)
@@ -156,7 +182,20 @@ def train(model_cfg: ModelConfig, tcfg: TrainConfig,
             start_step = int(extra.get("data_step", latest))
             log_fn(f"[resume] restored step {latest}")
 
-    train_step = TS.make_train_step(model_cfg, opt_cfg)
+    if mesh is not None:
+        run = SHT.ShardedTrain(model, opt_state, mesh, model_cfg, opt_cfg)
+        take_step, snapshot = run.step, run.state_tree
+    else:
+        train_step = TS.make_train_step(model_cfg, opt_cfg)
+        held = {"opt": opt_state}
+
+        def take_step(batch):
+            held["opt"], m = train_step(model, held["opt"], batch)
+            return m
+
+        def snapshot():
+            return state_tree(model, held["opt"])
+
     it = DataIterator(data_cfg, start_step=start_step)
     ckpt = CKPT.AsyncCheckpointer()
     wd = Watchdog(tcfg.watchdog_factor)
@@ -180,11 +219,11 @@ def train(model_cfg: ModelConfig, tcfg: TrainConfig,
     try:
         for step in range(start_step, tcfg.steps):
             batch = batch_to(it.batch_at(step), dev)
-            _sync(dev)
+            _sync(devices)
             t0 = time.perf_counter()
             in_step = True
-            opt_state, metrics = train_step(model, opt_state, batch)
-            _sync(dev)
+            metrics = take_step(batch)
+            _sync(devices)
             in_step = False
             done = step + 1
             dt = time.perf_counter() - t0
@@ -197,7 +236,7 @@ def train(model_cfg: ModelConfig, tcfg: TrainConfig,
             history.append(loss)
             step_s.append(dt)
             if tcfg.ckpt_dir and done % tcfg.ckpt_every == 0:
-                ckpt.save(tcfg.ckpt_dir, done, state_tree(model, opt_state),
+                ckpt.save(tcfg.ckpt_dir, done, snapshot(),
                           extra={"data_step": done})
                 saved = done
             if stop["now"]:
@@ -209,12 +248,13 @@ def train(model_cfg: ModelConfig, tcfg: TrainConfig,
             if tcfg.ckpt_dir:
                 ckpt.wait()
                 if not in_step and done > saved:
-                    CKPT.save(tcfg.ckpt_dir, done,
-                              state_tree(model, opt_state),
+                    CKPT.save(tcfg.ckpt_dir, done, snapshot(),
                               extra={"data_step": done})
         finally:
             for s, h in old_handlers.items():
                 signal.signal(s, h)
+
+    opt_state = run.finish() if mesh is not None else held["opt"]
 
     return {"loss": float(metrics["loss"]) if metrics else float("nan"),
             "history": history,

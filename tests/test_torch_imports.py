@@ -4,6 +4,7 @@ scripts/torch_*.py, no examples/torch_*.py and not chip_smoke.py imports
 src/repro_torch/ calls a library attention kernel."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -89,6 +90,13 @@ def test_port_files_found():
             "src/repro_torch/launch/train.py",
             "examples/torch_train_lm_e2e.py",
             "examples/torch_evolve_hparams.py"} <= rel
+    # and the model-parallel half: expert parallelism, the logical-axis
+    # rules, the sharded training state, the shape grid and the dry run
+    assert {"src/repro_torch/models/moe_a2a.py",
+            "src/repro_torch/sharding.py",
+            "src/repro_torch/train/sharded.py",
+            "src/repro_torch/launch/shapes.py",
+            "src/repro_torch/launch/dryrun.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -112,3 +120,17 @@ def test_no_library_attention(path):
     text = path.read_text()
     bad = [name for name in LIBRARY_KERNELS if name in text]
     assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_mesh_holds_the_cards_constants_not_a_tpus():
+    """`launch.mesh`'s roofline constants are one NVIDIA H100's: no TPU
+    v5e figure (197e12 FLOP/s, 819e9 B/s, 50e9 B/s) stands in its text or
+    its values."""
+    from repro_torch.launch import mesh as M
+    text = (ROOT / "src" / "repro_torch" / "launch" / "mesh.py").read_text()
+    for tpu in ("197e12", "819e9", "50e9"):
+        assert not re.search(r"(?<![\d.])" + tpu, text), tpu
+    values = {M.PEAK_FLOPS_BF16, M.HBM_BW, M.NVLINK_BW}
+    assert not values & {197e12, 819e9, 50e9}
+    assert (M.PEAK_FLOPS_BF16, M.HBM_BW, M.NVLINK_BW) == (989e12, 3.35e12,
+                                                          450e9)

@@ -51,5 +51,6 @@ def test_ci_torch_script_parses():
     text = script.read_text()
     for step in ("tests/test_torch_*.py", "torch_scheduler_smoke.py",
                  "torch_chaos_smoke.py", "torch_autotune_smoke.py",
-                 "torch_streaming_smoke.py", "--mesh auto", "CI OK"):
+                 "torch_streaming_smoke.py", "--mesh auto",
+                 "repro_torch.launch.dryrun", "CI OK"):
         assert step in text, step
