@@ -55,4 +55,7 @@ echo "   kernel; runs on the host whatever DEVICE is) =="
 timeout 300 python -m repro_torch.launch.dryrun --arch minitron-8b \
     --shape train_4k --mesh pod1 --out artifacts/dryrun_results_torch
 
+echo "== roofline table of the dry-run smoke's cell =="
+python scripts/torch_roofline_table.py artifacts/dryrun_results_torch pod1
+
 echo "CI OK"

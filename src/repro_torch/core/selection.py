@@ -14,16 +14,22 @@ with XLA's CPU orders, which are neither sequential nor pairwise:
   * ``jnp.cumsum`` is a recursive blocked scan of base 16: a sequential
     scan within blocks of 16, the block totals scanned the same way, each
     block's offset added after (`blocked_cumsum`);
-  * ``jnp.sum`` over a row of n > 32 elements sums k = ceil(n / 32)
-    contiguous windows of ceil(n / k) elements sequentially, then the k
-    window sums the same way (`blocked_sum`); n <= 32 is sequential.
+  * ``jnp.sum`` over a row of n > 32 elements is a reduce-window of
+    k = ceil(n / 32) windows of exactly 32, the k * 32 - n padding zeros
+    split floor(pad / 2) in front and the rest behind, each window summed
+    sequentially, then a reduce of the k window sums in the same order,
+    recursively (`blocked_sum`); n <= 32 is one sequential sum.  XLA
+    starts each window from 0.0, and 0 + x is exact, so a window's sum is
+    its elements' sequential sum.  The HLO dump shows the model
+    (``XLA_FLAGS=--xla_dump_to=DIR``): at n = 66 the row sum is
+    ``reduce-window(window size=1x32 stride=1x32 pad=0_0x15_15)``
+    followed by a ``reduce`` over the 3 window sums.
 
 Both are written here as plain float32 adds, so the cdf is the XLA one bit
-for bit wherever the model holds (every N tested that is at most 32, a
-multiple of 32, or two equal windows; the tests pin N in {16, 64, 1024})
-and on the card alike.  `torch.cumsum` is not used: on the CPU it
-accumulates float32 in double.  `rank`'s cdf holds integers below 2^24 and
-is exact in any order.
+for bit at every N tested (the tests pin N in {16, 64, 1024} and the odd sizes
+66, 100, 130, 200 and 1000) and on the card alike.  `torch.cumsum` is not
+used: on the CPU it accumulates float32 in double.  `rank`'s cdf holds
+integers below 2^24 and is exact in any order.
 """
 
 from __future__ import annotations
@@ -79,7 +85,9 @@ def blocked_sum(w: torch.Tensor) -> torch.Tensor:
     if n <= SUM_WINDOW:
         return _seq_sum(w)
     k = -(-n // SUM_WINDOW)
-    return blocked_sum(_seq_sum(_blocks(w, -(-n // k))))
+    pad = k * SUM_WINDOW - n
+    w = torch.nn.functional.pad(w, (pad // 2, pad - pad // 2))
+    return blocked_sum(_seq_sum(w.reshape(w.shape[:-1] + (k, SUM_WINDOW))))
 
 
 def unit_draw(sel_lfsr: torch.Tensor, cfg: GAConfig

@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sharding as SH
@@ -148,6 +149,34 @@ def zeros_tree(defs: Any, dtype: torch.dtype, device) -> Any:
 # ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA lowers it for a 16-bit `x`: x * (1 / (1 +
+    exp(-x))), each op rounded to x's dtype.  PyTorch's fused silu rounds
+    once and in bf16 lands an ulp away from XLA's in ~40% of the elements.
+    In float32 and wider the fused kernel stays: one launch in place of
+    five, an ulp from XLA's at most, inside every float32 bound."""
+    if x.dtype.itemsize >= 4:
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """`v` rounded to `dtype`, as a JAX constant takes its operand's."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in XLA's op order for a 16-bit
+    `x`, each op rounded to x's dtype and its constants too (PyTorch's
+    fused tanh gelu parts from XLA's in ~37% of bf16 elements); the fused
+    kernel in float32 and wider, as for `silu`."""
+    if x.dtype.itemsize >= 4:
+        return F.gelu(x, approximate="tanh")
+    inner = _in_dtype(0.7978845608028654, x.dtype) * (
+        x + _in_dtype(0.044715, x.dtype) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,

@@ -6,7 +6,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import common as C
 
@@ -26,7 +25,7 @@ class GatedMLP(C.ParamModule):
     def forward(self, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         g = C.dense(x, self.w_gate)
         u = C.dense(x, self.w_up)
-        a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+        a = C.silu(g) if act == "silu" else C.gelu_tanh(g)
         return C.dense((a * u).to(x.dtype), self.w_down)
 
 
@@ -45,5 +44,5 @@ class PlainMLP(C.ParamModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = C.dense(x, self.w_in, self.b_in)
-        h = F.gelu(h, approximate="tanh").to(x.dtype)
+        h = C.gelu_tanh(h).to(x.dtype)
         return C.dense(h, self.w_out, self.b_out)

@@ -105,7 +105,7 @@ class MoE(C.ParamModule):
 
         gate = torch.einsum("gecd,edf->gecf", expert_in, self.w_gate)
         up = torch.einsum("gecd,edf->gecf", expert_in, self.w_up)
-        act = (F.silu(gate) * up).to(x.dtype)
+        act = (C.silu(gate) * up).to(x.dtype)
         expert_out = torch.einsum("gecf,efd->gecd", act, self.w_down)
 
         w_oh = oh * weights[..., None]                         # (G,S,k,E)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import common as C
 from repro_torch.models.moe import MoEConfig, route
 
 
@@ -112,7 +113,7 @@ def _experts(recv: torch.Tensor, recv_e: torch.Tensor, wg: torch.Tensor,
     buckets = buckets.index_add(
         0, bidx, recv * keep2[:, None].to(recv.dtype))[:-1]
     bx = buckets.reshape(e_loc, ecap, d)
-    h = F.silu(torch.einsum("ecd,edf->ecf", bx, wg)) * \
+    h = C.silu(torch.einsum("ecd,edf->ecf", bx, wg)) * \
         torch.einsum("ecd,edf->ecf", bx, wu)
     out_b = torch.einsum("ecf,efd->ecd", h.to(bx.dtype), wd)
     out_rows = out_b.reshape(e_loc * ecap, d)[

@@ -100,7 +100,7 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
     out = pad[:, 0:s, :] * w[0][None, None, :]
     for i in range(1, width):
         out = out + pad[:, i: i + s, :] * w[i][None, None, :]
-    return F.silu((out + bias[None, None, :]).float()).to(xbc.dtype)
+    return C.silu((out + bias[None, None, :]).float()).to(xbc.dtype)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +181,7 @@ class SSM(C.ParamModule):
         self.cfg = cfg
 
     def _gate_out(self, y, z, dtype):
-        y = C.rmsnorm(y * F.silu(z.float()).to(dtype), self.norm_w)
+        y = C.rmsnorm(y * C.silu(z.float()).to(dtype), self.norm_w)
         return C.dense(y, self.out_proj)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
@@ -235,7 +235,7 @@ class SSM(C.ParamModule):
         window = torch.cat([cache["conv"], xbc], dim=1)      # (B,W,C)
         conv_out = torch.einsum("bwc,wc->bc", window.float(),
                                 self.conv_w.float()) + self.conv_b.float()
-        xbc_act = F.silu(conv_out)[:, None, :].to(x.dtype)
+        xbc_act = C.silu(conv_out)[:, None, :].to(x.dtype)
         conv_cache = window[:, 1:, :]
 
         xi, b, c = split_xbc(xbc_act, cfg)

@@ -157,25 +157,49 @@ def init(params: Union[Mapping[str, torch.Tensor],
                      v={k: zeros_like(p) for k, p in named.items()})
 
 
-def _sum_squares(g: torch.Tensor) -> torch.Tensor:
-    """sum(g.float() ** 2): each row's sum, in chunks of rows past
-    CHUNK_ELEMS, then the sum of the rows' sums, so the chunk changes no
-    value."""
+def _sum_squares(g: torch.Tensor, scale: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """sum((g.float() / scale) ** 2), no division without `scale`: each
+    row's sum, in chunks of rows past CHUNK_ELEMS, then the sum of the
+    rows' sums, so the chunk changes no value."""
     rows = _rows(g.contiguous())
     step = max(1, CHUNK_ELEMS // max(rows.shape[1], 1))
     per_row = []
     for r0 in range(0, rows.shape[0], step):
         gf = rows[r0:r0 + step].float()
+        if scale is not None:
+            gf = gf / scale
         per_row.append(torch.sum(gf * gf, dim=1))
     return torch.sum(torch.cat(per_row))
 
 
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every leaf's `_sum_squares`, in the order of
-    `grads`, on the first leaf's device."""
-    leaves = [_sum_squares(g) for g in grads.values()]
+    `grads`, on the first leaf's device: JAX's `_global_norm` (up to the
+    order of its sums, above) wherever that float32 sum is finite.
+
+    Where it overflows while every element is finite (a deviation by
+    design, hazard H9: minitron-8b's gradient at its init as drawn), the
+    norm is m * sqrt(sum((g / m) ** 2)) with m the largest |g| of every
+    leaf, summed in the same order, so the clip factor is not 0.  A leaf
+    that is itself inf or NaN keeps the plain value.  Deciding reads the
+    norm on the host once a call (not on `meta`)."""
+    leaves = list(grads.values())
     dev = leaves[0].device
-    return _sqrt(torch.sum(torch.stack([t.to(dev) for t in leaves])))
+
+    def norm_of(scale=None):
+        return _sqrt(torch.sum(torch.stack(
+            [_sum_squares(g, None if scale is None else scale.to(g.device))
+             .to(dev) for g in leaves])))
+
+    norm = norm_of()
+    if dev.type == "meta" or bool(torch.isfinite(norm)):
+        return norm
+    m = torch.amax(torch.stack([torch.amax(torch.abs(g)).float().to(dev)
+                                for g in leaves]))
+    if not bool(torch.isfinite(m)):
+        return norm
+    return m * norm_of(m)
 
 
 def _update_rows(p, g, m, v, k: Dict[str, torch.Tensor], cfg: AdamWConfig

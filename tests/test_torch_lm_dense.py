@@ -1,8 +1,8 @@
 """The dense family of the port's LM (minitron, yi, qwen1.5, gemma3) at reduced
 size against the JAX package: forward, prefill and two decode steps in float32
-and bf16, and in bf16 again at one or two layers, the caches, the port's own
-prefill/decode against its forward, and the parameter count.  The harness and
-the bounds are in tests/test_torch_lm_common.py."""
+and bf16, and in bf16 again at one or two layers and at full depth, the
+caches, the port's own prefill/decode against its forward, and the parameter
+count.  The harness and the bounds are in tests/test_torch_lm_common.py."""
 
 import pytest
 
@@ -34,6 +34,10 @@ def test_bf16_matches_jax(run, which):
 
 def test_bf16_as_accurate_as_jax(run):
     H.check_bf16_accuracy(run)
+
+
+def test_bf16_deep_matches_jax(run):
+    H.check_bf16_deep_matches_jax(run)
 
 
 @pytest.mark.parametrize("dtype", H.DTYPES)

@@ -4,9 +4,13 @@ and LFSR words made with numpy from a seed.
 
 Tolerance and its reason (hazard H5): `roulette` and `rank` build a cdf
 from a float32 prefix sum and total, and the jitted JAX reference
-computes them in XLA's CPU orders.  The port writes those orders out
-(`blocked_cumsum`, `blocked_sum`), so the cdf is held bit-exact at N in
-{16, 64, 1024}, and so are the picks and the state.  A fed-cdf test pins
+computes them in XLA's CPU orders: a blocked scan of base 16 and a
+reduce-window of 32-wide windows with the padding split around the row.
+The port writes those orders out (`blocked_cumsum`, `blocked_sum`), so
+the cdf is held bit-exact at the power-of-two sizes N in {16, 64, 1024}
+and at the odd sizes {66, 100, 130, 200, 1000}, where a window of
+ceil(n / k) elements would differ; so are the picks and the state, also
+inside the jitted scan of a generation.  A fed-cdf test pins
 the pick itself: JAX's own cdf and draws through the port's searchsorted
 and clip give JAX's picks bit for bit.  Everything else is integer work
 and bit-exact.  Runs use LUT fitness (integer ROM reads) so the state
@@ -43,6 +47,7 @@ def _no_ambient_cost_table(monkeypatch):
 
 
 SIZES = (16, 64, 1024)
+ODD_SIZES = (66, 100, 130, 200, 1000)
 CPU = TGA.EngineOptions(device="cpu")
 
 
@@ -74,7 +79,7 @@ def _np(t):
     return convert.words_to_numpy(t)
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + ODD_SIZES + (33, 3000))
 def test_blocked_scan_and_sum_are_xla_orders(n):
     rng = np.random.default_rng(n)
     w = (rng.random((4, n)) * rng.choice([1.0, 100.0, 1e4],
@@ -92,7 +97,7 @@ def test_blocked_scan_and_sum_are_xla_orders(n):
         np.asarray(jax.jit(jnp.cumsum)(w[0])))
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + ODD_SIZES)
 @pytest.mark.parametrize("minimize", [True, False])
 @pytest.mark.parametrize("name", ["roulette", "rank"])
 def test_cdf_bit_exact(name, minimize, n):
@@ -140,7 +145,7 @@ def test_fed_cdf_picks_bit_exact(n):
     assert TS.pick(torch.from_numpy(cdf[:1]), top, n).max().item() == n - 1
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + ODD_SIZES)
 @pytest.mark.parametrize("minimize", [True, False])
 @pytest.mark.parametrize("name", ["tournament", "tournament4", "roulette",
                                   "rank", "tournament_elite"])
@@ -192,7 +197,7 @@ PIPELINES = [("tournament4", "single_point", "xor"),
              ("rank", "uniform", "none")]
 
 
-@pytest.mark.parametrize("n", (16, 64))
+@pytest.mark.parametrize("n", (16, 64) + ODD_SIZES)
 @pytest.mark.parametrize("ops", PIPELINES, ids="-".join)
 def test_make_generation_through_run_scan_bit_exact(ops, n):
     """`make_generation` driven by `run_scan` over a replica stack: the
