@@ -5,12 +5,15 @@ An **executor** advances a stack of populations a block of generations:
   reference  the operator pipeline in plain PyTorch
              (`repro_torch.core.ga.run_scan`); any registered operators.
   fused      the hand-written CUDA kernel K1
-             (`repro_torch.kernels.ga_step`) — one launch per
-             `spec.gens_per_epoch` generations, the replica stack one thread
-             block each; paper pipeline, arith FFM of a built-in problem,
-             power-of-two N whose state fits a block's shared memory.
-             Bit-identical to `reference` (state and best; the trajectory
-             coarsens to one sample per launch when gens_per_epoch > 1).
+             (`repro_torch.kernels.ga_step`) — one K1 call per
+             `spec.gens_per_epoch` generations: the replica stack one thread
+             block each where a replica fits a block's shared memory and the
+             fitness is a built-in problem, else K1's global form (three
+             launches a generation, the state in global memory, any fitness
+             through its PyTorch stage); paper pipeline, arith FFM,
+             power-of-two N, the JAX package's gates.  Bit-identical to
+             `reference` (state and best; the trajectory coarsens to one
+             sample per launch when gens_per_epoch > 1).
 
 A **topology** owns population layout, the epoch loop and migration:
 
@@ -550,7 +553,7 @@ class IslandRingTopology(Topology):
             migration=spec.migration, gens_per_epoch=spec.gens_per_epoch,
             migrate_every=spec.migrate_every, groups=spec.n_repeats,
             device=self.device, sharded=self.mesh is not None,
-            budget=self.smem_budget)
+            budget=self.smem_budget, program=self.executor.program)
 
     def _plan_point(self, cand: Dict[str, Any]) -> Dict[str, Any]:
         return CC.plan_point(self.spec, executor=self.executor.name,
@@ -620,7 +623,9 @@ class IslandRingTopology(Topology):
             plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
         elif plan["mode"].startswith("resident"):
             plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
-        elif self.executor.name == "fused":
+        elif (self.executor.name == "fused"
+              and K.block_reason(self.cfg, self.executor.program) is None):
+            # (K1's global form keeps no replica in shared memory)
             plan["smem_estimate_bytes"] = K.smem_bytes(n, v, p)
         return plan
 

@@ -21,6 +21,10 @@
 //                            inside one cooperative launch (K2's contract,
 //                            for island counts past a cluster).
 //
+// K1 also has a global-memory form, three kernels a generation (ga_ffm,
+// ga_best, ga_operators; see the note above them), for the replicas and
+// fitness functions the one-block form cannot take.
+//
 // One generation (`generation` below) is the paper's datapath: 2-way
 // tournaments on the top `idx_bits` of the selection draws, mask-shift
 // single-point crossover with per-variable cut points, an XOR mutation of
@@ -329,11 +333,26 @@ struct Decoder {
   }
 };
 
+// Variable j of individual i of one replica's [N, V] population in global
+// memory, the layout the wrappers hand over (the global form of K1).
+struct RowDecoder {
+  const uint32_t* x;
+  int v;
+  uint32_t mask;
+  const float* lo;
+  const float* span;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return lo[j] + (float)(x[(size_t)i * v + j] & mask) * span[j];
+  }
+};
+
 // The FFM of the K individuals i[0..K) into y[0..K): each follows the plain
 // version's operation order, and the K evaluations run interleaved, step by
-// step, so their dependency chains overlap (K = 2: a thread's pair).
-template <int K>
-__device__ __forceinline__ void ffm(int problem, const Decoder& d,
+// step, so their dependency chains overlap (K = 2: a thread's pair).  `D`
+// reads variable j of individual i: `Decoder` in shared memory, `RowDecoder`
+// in the global memory of the global form.
+template <int K, class D = Decoder>
+__device__ __forceinline__ void ffm(int problem, const D& d,
                                     const int (&i)[K], int v, float (&y)[K]) {
   switch (problem) {
     case kF1:
@@ -971,6 +990,175 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The global-memory form of K1.  The one-block form above keeps a replica in
+// one block's shared memory, so it refuses a replica past 227 KB (N = 8192
+// at V = 1 down to N = 256 at V = 64) and a fitness it has no FFM stage for
+// (a blackbox or a problem the user registered).  The TPU kernel takes both:
+// its population lives in VMEM, which holds megabytes, and it traces any
+// fitness into its body.  Here one generation of a stack [R, N, V] is three
+// kernels that leave the state in global memory, in the wrappers' layouts:
+//
+//   ga_ffm        y [R, N] of x: the built-in problems' `ffm<1>` a thread
+//                 an individual (for any other fitness the wrapper calls
+//                 its PyTorch stage instead: CUDA cannot take a Python
+//                 function, and the stage is what the reference runs);
+//   ga_best       the running best (best_y [R], best_x [R, V]) folded with
+//                 x's best: a block a replica reduces y with `takes`' first
+//                 occurrence rule and keeps a strict improvement; a NaN
+//                 anywhere in y leaves it as it was (the plain version's
+//                 argmin picks the NaN, which its strict compare refuses);
+//   ga_operators  x' and the banks advanced one generation from x and y: a
+//                 thread a pair, as `generation` runs it — two tournaments,
+//                 the crossover of each variable, the XOR mutation of the
+//                 rows below P — reading parents from global memory at any
+//                 index.  Every word of the mutation bank is clocked, as the
+//                 plain version clocks it (the one-block form leaps the rows
+//                 at and past P once at its store).
+//
+// A kernel boundary orders the steps; the wrapper launches the three once a
+// generation.  Each is bound by the bytes it moves: a generation reads and
+// writes the state once in ga_operators (N*V + 2N + V*N/2 + V*N words a
+// replica each way) and reads x and y again in ga_ffm and ga_best, a few
+// operations a byte, far below the card's issue rate.  A simple kernel that
+// is right comes first: no shared-memory tiling, no grid-wide loop over the
+// generations, the LFSR clocks read at run time.  Built with the flags of
+// the whole file, so the FFM rounds as the plain version does.
+// ---------------------------------------------------------------------------
+
+constexpr int kGlobalThreads = 256;  // ga_ffm, ga_operators: a thread an item
+constexpr int kBestThreads = 512;    // ga_best: a block a replica
+
+// y[r, i]: the FFM of individual i of replica r, one thread each.
+__global__ void __launch_bounds__(kGlobalThreads)
+ga_ffm(const uint32_t* x, float* y, const float* lo, const float* span,
+       size_t items, int n, int v, int c, int problem) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= items) return;
+  const size_t r = t / (size_t)n;
+  const int i[1] = {(int)(t - r * n)};
+  float out[1];
+  ffm<1>(problem, RowDecoder{x + r * n * v, v, (1u << c) - 1u, lo, span}, i,
+         v, out);
+  y[t] = out[0];
+}
+
+// The banks of a stack in global memory, in and out.
+struct Operators {
+  const uint32_t* x;      // [R, N, V] the population
+  const float* y;         // [R, N]    its fitness
+  const uint32_t* sel;    // [R, 2, N]
+  const uint32_t* cross;  // [R, V, N/2]
+  const uint32_t* mut;    // [R, V, N]
+  uint32_t* x_out;        // the offspring
+  uint32_t* sel_out;      // the banks, each word clocked by S.steps
+  uint32_t* cross_out;
+  uint32_t* mut_out;
+};
+
+// SM, CM and MM of one generation, a thread a pair (a = 2pr, b = a + 1) of
+// replica r, for `pairs` = R * N/2 pairs.
+__global__ void __launch_bounds__(kGlobalThreads)
+ga_operators(const Operators O, const Shape S, size_t pairs) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= pairs) return;
+  const int n = S.n, v = S.v, half = n / 2, p = S.p, steps = S.steps;
+  const size_t r = t / (size_t)half;
+  const int pr = (int)(t - r * half), a = 2 * pr, b = a + 1;
+  const bool minimize = S.minimize != 0;
+  const uint32_t mask = (1u << S.c) - 1u;
+  const int sel_shift = 32 - S.idx_bits, cut_shift = 32 - S.cut_bits,
+            mut_shift = 32 - S.c;
+  const uint32_t* x = O.x + r * n * v;
+  const float* y = O.y + r * n;
+  const size_t osel = r * 2 * n, ocross = r * v * half, omut = r * v * n;
+  // ---- SM: the pair's two tournaments -------------------------------------
+  const size_t at[4] = {osel + a, osel + b, osel + n + a, osel + n + b};
+  uint32_t d[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    d[k] = lfsr_advance(O.sel[at[k]], steps);
+    O.sel_out[at[k]] = d[k];
+  }
+  int i1 = (int)(d[0] >> sel_shift), i2 = (int)(d[2] >> sel_shift);
+  const int wa = (minimize ? y[i1] <= y[i2] : y[i1] >= y[i2]) ? i1 : i2;
+  i1 = (int)(d[1] >> sel_shift);
+  i2 = (int)(d[3] >> sel_shift);
+  const int wb = (minimize ? y[i1] <= y[i2] : y[i1] >= y[i2]) ? i1 : i2;
+  // ---- CM + MM: per variable, crossover then XOR mutation -----------------
+  uint32_t* za = O.x_out + (r * n + a) * v;   // child a's row; b's follows
+  for (int j = 0; j < v; ++j) {
+    const size_t oc = ocross + (size_t)j * half + pr;
+    const uint32_t cw = lfsr_advance(O.cross[oc], steps);
+    O.cross_out[oc] = cw;
+    uint32_t cut = cw >> cut_shift;
+    cut = cut < (uint32_t)S.c ? cut : (uint32_t)S.c;
+    const uint32_t sm = mask >> cut;
+    const uint32_t w1 = x[(size_t)wa * v + j], w2 = x[(size_t)wb * v + j];
+    uint32_t z1 = (w1 & ~sm) | (w2 & sm);
+    uint32_t z2 = (w2 & ~sm) | (w1 & sm);
+    const size_t om = omut + (size_t)j * n + a;
+    const uint32_t ma = lfsr_advance(O.mut[om], steps),
+                   mb = lfsr_advance(O.mut[om + 1], steps);
+    O.mut_out[om] = ma;
+    O.mut_out[om + 1] = mb;
+    if (a < p) z1 ^= ma >> mut_shift;
+    if (b < p) z2 ^= mb >> mut_shift;
+    za[j] = z1;
+    za[v + j] = z2;
+  }
+}
+
+// The running best of each replica folded with the best of (x, y): a block
+// a replica.  by_out, bx_out may alias by_in, bx_in.
+__global__ void __launch_bounds__(kBestThreads)
+ga_best(const uint32_t* x, const float* y, const float* by_in,
+        const uint32_t* bx_in, float* by_out, uint32_t* bx_out, int n,
+        int v, int minimize) {
+  __shared__ float wv[kBestThreads / 32];
+  __shared__ int wi[kBestThreads / 32];
+  const size_t r = blockIdx.x;
+  const bool mini = minimize != 0;
+  const float* yr = y + r * n;
+  float bv = worst_value(mini);
+  int bi = 0x7fffffff;
+  bool nan = false;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float yi = yr[i];
+    nan |= isnan(yi);
+    if (takes(yi, i, bv, bi, mini)) {
+      bv = yi;
+      bi = i;
+    }
+  }
+  const float old = by_in[r];   // read by all before the barrier
+  warp_best(bv, bi, mini);
+  if ((threadIdx.x & 31) == 0) {
+    wv[threadIdx.x >> 5] = bv;
+    wi[threadIdx.x >> 5] = bi;
+  }
+  nan = __syncthreads_or(nan);
+  // every warp folds the warp partials: the block's best in every thread
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  bv = lane < nwarps ? wv[lane] : worst_value(mini);
+  bi = lane < nwarps ? wi[lane] : 0x7fffffff;
+  warp_best(bv, bi, mini);
+  bv = __shfl_sync(0xffffffffu, bv, 0);
+  bi = __shfl_sync(0xffffffffu, bi, 0);
+  const bool better = !nan && (mini ? bv < old : bv > old);
+  for (int j = threadIdx.x; j < v; j += blockDim.x)
+    bx_out[r * v + j] = better ? x[(r * n + bi) * v + j] : bx_in[r * v + j];
+  if (threadIdx.x == 0) by_out[r] = better ? bv : old;
+}
+
+bool bad_global(int replicas, int n, int v, int c) {
+  return replicas < 1 || n < 2 || n % 2 || v < 1 || c < 1 || c > 31;
+}
+
+unsigned blocks_for(size_t items, int threads) {
+  return (unsigned)((items + threads - 1) / threads);
+}
+
 bool bad_shape(size_t smem, int n, int v, int c, int p, int steps) {
   return smem > (size_t)kSmemLimit || n < 2 || n % 2 || v < 1 || c < 1 ||
          c > 31 || p < 0 || p > n || steps < 0;
@@ -1258,6 +1446,74 @@ int ga_streamed_capacity(int n, int v, int p, int steps, int* out) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   *out = per_sm * sms;
+  return 0;
+}
+
+// The global form of K1, one generation's three kernels (see above); each
+// returns the cudaError_t of its launch.  ga_ffm: y [R, N] of x [R, N, V]
+// for built-in problem `problem`.
+int ga_ffm_launch(const void* x, void* y, const void* lo, const void* span,
+                  int replicas, int n, int v, int c, int problem,
+                  void* stream) {
+  if (bad_global(replicas, n, v, c) || problem < kF1 || problem > kAckley)
+    return (int)cudaErrorInvalidValue;
+  const size_t items = (size_t)replicas * n;
+  ga_ffm<<<blocks_for(items, kGlobalThreads), kGlobalThreads, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)x, (float*)y,
+                                   (const float*)lo, (const float*)span,
+                                   items, n, v, c, problem);
+  return (int)cudaGetLastError();
+}
+
+// ga_operators: the offspring and the clocked banks of one generation.
+int ga_operators_launch(const void* x, const void* y, const void* sel,
+                        const void* cross, const void* mut, void* x_out,
+                        void* sel_out, void* cross_out, void* mut_out,
+                        int replicas, int n, int v, int c, int idx_bits,
+                        int cut_bits, int p, int steps, int minimize,
+                        void* stream) {
+  if (bad_global(replicas, n, v, c) || (n & (n - 1)) || idx_bits < 1 ||
+      idx_bits > 31 || (1u << idx_bits) != (unsigned)n || cut_bits < 1 ||
+      cut_bits > 31 || p < 0 || p > n || steps < 0)
+    return (int)cudaErrorInvalidValue;
+  const Operators O{(const uint32_t*)x,     (const float*)y,
+                    (const uint32_t*)sel,   (const uint32_t*)cross,
+                    (const uint32_t*)mut,   (uint32_t*)x_out,
+                    (uint32_t*)sel_out,     (uint32_t*)cross_out,
+                    (uint32_t*)mut_out};
+  const Shape S{n, v, c, idx_bits, cut_bits, p, steps, minimize, -1, 0};
+  const size_t pairs = (size_t)replicas * (n / 2);
+  ga_operators<<<blocks_for(pairs, kGlobalThreads), kGlobalThreads, 0,
+                 (cudaStream_t)stream>>>(O, S, pairs);
+  return (int)cudaGetLastError();
+}
+
+// ga_best: (best_y, best_x) folded with the best of (x, y), a block a
+// replica.
+int ga_best_launch(const void* x, const void* y, const void* best_y_in,
+                   const void* best_x_in, void* best_y_out, void* best_x_out,
+                   int replicas, int n, int v, int minimize, void* stream) {
+  if (bad_global(replicas, n, v, 1)) return (int)cudaErrorInvalidValue;
+  ga_best<<<replicas, kBestThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const float*)y, (const float*)best_y_in,
+      (const uint32_t*)best_x_in, (float*)best_y_out, (uint32_t*)best_x_out,
+      n, v, minimize);
+  return (int)cudaGetLastError();
+}
+
+// Registers and local (spill and stack) bytes a thread of the global
+// form's kernel `which` (0: ga_ffm, 1: ga_operators, 2: ga_best).
+int ga_global_kernel_attrs(int which, int* regs, int* local_bytes) {
+  const void* kernel = which == 0   ? (const void*)ga_ffm
+                       : which == 1 ? (const void*)ga_operators
+                       : which == 2 ? (const void*)ga_best
+                                    : nullptr;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
   return 0;
 }
 

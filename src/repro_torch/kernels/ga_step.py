@@ -1,7 +1,11 @@
 """The fused GA kernels of the island ring — CUDA kernels and plain twins.
 
   K1 `ga_generation_kernel`      `gens` generations of each island (replica)
-                                 of a stack [R, N, V];
+                                 of a stack [R, N, V]: the one-block form
+                                 where it fits, else the global form (three
+                                 kernels a generation: `ga_ffm_kernel` or
+                                 the program's PyTorch stage,
+                                 `ga_best_kernel`, `ga_operators_kernel`);
   K2 `ga_epoch_kernel`           resident epochs of replica groups
                                  [G, I, N, V]: `intervals` migration
                                  intervals with the ring migration inside the
@@ -45,13 +49,18 @@ Contracts (the JAX package's kernels, on int32 words):
       with `migrate`; with `splice=True`, K2's outputs for `intervals`
       intervals (the state after the last splice).
 
-Each kernel holds one island per thread block with its state in shared
-memory (the mutation rows past P, never drawn, stay in global memory, and so
-do the rows below P where they do not fit; see the note at the top of the
-CUDA source), so (N, V) must fit `SMEM_LIMIT`; K2's ring makes the islands
-of a group one thread-block cluster, at most `MAX_CLUSTER`; K3's ring needs
-every block of a launch co-resident (`streamed_capacity`).  `hopper_reason`
-says why a shape or a fitness cannot run, and the epoch planner
+K1's one-block form, K2 and K3 hold one island per thread block with its
+state in shared memory (the mutation rows past P, never drawn, stay in
+global memory, and so do the rows below P where they do not fit; see the
+note at the top of the CUDA source), so (N, V) must fit `SMEM_LIMIT`, and
+their FFM stage is CUDA's own, for the built-in problems; K2's ring makes
+the islands of a group one thread-block cluster, at most `MAX_CLUSTER`;
+K3's ring needs every block of a launch co-resident (`streamed_capacity`).
+K1's global form keeps the state in global memory and takes any fitness
+(a blackbox or registered one through its PyTorch stage, as the reference
+evaluates it), so K1 runs every spec the JAX package's fused kernel runs.
+`hopper_reason` says why a spec cannot run fused at all, `block_reason`
+why the one-block form cannot take it, and the epoch planner
 (`epoch_mode_candidates`) which launch shapes an island-ring spec can take
 on this card.
 """
@@ -59,8 +68,12 @@ on this card.
 from __future__ import annotations
 
 import functools
+import inspect
 import math
+import os
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -70,8 +83,12 @@ from repro_torch.core import islands as ISL
 from repro_torch.core.ga import GAConfig, ONEHOT_MAX_N
 
 # launches of each kernel made by its wrapper (plain-version calls excluded)
+# (K1's global form apart: "ga_generation:global" counts `ga_operators`,
+# one a generation, beside "ga_ffm" and "ga_best")
 LAUNCHES: Dict[str, int] = {"ga_generation": 0, "ga_epoch": 0,
-                            "ga_streamed_epoch": 0}
+                            "ga_streamed_epoch": 0,
+                            "ga_generation:global": 0, "ga_ffm": 0,
+                            "ga_best": 0}
 # of those, the launches of the two forms only a mesh runs: K2's boundary
 # form and K3's one interval without the ring inside
 FORM_LAUNCHES: Dict[str, int] = {"ga_epoch:boundary": 0,
@@ -138,15 +155,57 @@ def problem_id(program: F.FitnessProgram) -> Optional[int]:
     return pid
 
 
+def _tensor_bytes(value) -> int:
+    """Bytes of the tensors and arrays in `value`, looking one level into
+    tuples, lists and dicts."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    if isinstance(value, np.ndarray):
+        return int(value.nbytes)
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, (tuple, list)):
+        return sum(_tensor_bytes(v) for v in value
+                   if isinstance(v, (torch.Tensor, np.ndarray)))
+    return 0
+
+
+def ffm_const_bytes(program: F.FitnessProgram) -> int:
+    """Bytes of array constants the program's FFM stage takes, counted as
+    the JAX package counts its traced stage's constants: the decode's lo
+    and span (4 bytes a variable each) and the tensors and arrays the
+    fitness function closes over (`inspect.getclosurevars`: its nonlocals
+    and the globals it names, one level into tuples, lists and dicts).
+    Counted once a program."""
+    cached = program.__dict__.get("_const_bytes")
+    if cached is None:
+        fn = getattr(program.fn, "__func__", program.fn)
+        cached = 8 * program.n_vars
+        if inspect.isfunction(fn):
+            seen = inspect.getclosurevars(fn)
+            cached += sum(_tensor_bytes(v) for v in
+                          (*seen.nonlocals.values(), *seen.globals.values()))
+        program.__dict__["_const_bytes"] = cached
+    return cached
+
+
+def ffm_const_limit() -> int:
+    """The FFM-constant gate (bytes), the JAX package's:
+    REPRO_FFM_CONST_LIMIT overrides the default 2 MiB."""
+    return int(os.environ.get("REPRO_FFM_CONST_LIMIT", str(2 << 20)))
+
+
 def hopper_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
-    """None if the CUDA kernel can run this (config, program), else why.
+    """None if K1 can run this (config, program) on the card in one of its
+    forms, else why: exactly what the JAX package's fused kernel refuses
+    past its mode and pipeline checks.
 
     The tournament indices are the top `idx_bits` of the LFSR draw, so N
     must be a power of two on any lane; a pinned onehot lane keeps the JAX
-    package's N cap so a spec validates the same way in both packages; the
-    fitness needs an FFM stage in the kernel; the replica's state must fit
-    a block's shared memory (the mutation rows below P only where they
-    fit)."""
+    package's N cap so a spec validates the same way in both packages; a
+    fitness that closes over more than `ffm_const_limit()` bytes of arrays
+    (a dataset) is refused with the JAX package's words, so `auto` routes
+    it to 'reference' in both packages."""
     if cfg.n & (cfg.n - 1):
         return (f"N={cfg.n}: the fused kernel path draws tournament indices "
                 "from the top idx_bits LFSR bits and requires a power-of-two "
@@ -156,26 +215,50 @@ def hopper_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
                 "lane, the JAX package's cap for its (N, N) one-hot "
                 "tournament matrices; switch to the dynamic-indexing lane "
                 "with sel_lane='gather'")
+    const_bytes, limit = ffm_const_bytes(program), ffm_const_limit()
+    if const_bytes > limit:
+        return (f"FFM stage captures {const_bytes} bytes of array "
+                f"constants (> the {limit}-byte VMEM gate): hoisted "
+                "consts replicate into VMEM per grid step — run "
+                "'reference' (REPRO_FFM_CONST_LIMIT overrides)")
+    return None
+
+
+def block_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
+    """None if the one-block form of K1 (and, for the FFM stage, K2 and K3)
+    takes this (config, program), else why: the fitness needs an FFM stage
+    in CUDA (a built-in problem), and the replica's state must fit a
+    block's shared memory (the mutation rows below P only where they fit).
+    K1's global form takes what this refuses; K2 and K3 do not."""
     if problem_id(program) is None:
         return (f"no Hopper FFM stage for this fitness ({program.name!r}): "
-                "the CUDA kernel implements the built-in problems "
-                f"{sorted(PROBLEM_IDS)}; blackbox and user-registered "
-                "fitness run on 'reference'")
+                "the one-block kernels implement the built-in problems "
+                f"{sorted(PROBLEM_IDS)}; K1's global form runs a blackbox "
+                "or user-registered fitness through its PyTorch stage")
     need = smem_bytes(cfg.n, cfg.v, cfg.p)
     if need > SMEM_LIMIT:
         return (f"N={cfg.n}, V={cfg.v}, P={cfg.p} needs {need} bytes of "
                 f"shared memory per replica, past the {SMEM_LIMIT}-byte "
-                "limit of one Hopper thread block (the kernel keeps a "
-                "replica's state in shared memory); use a smaller N or V, "
-                "or 'reference'")
+                "limit of one Hopper thread block (the one-block kernels "
+                "keep a replica's state in shared memory); K1's global "
+                "form keeps it in global memory")
     return None
 
 
-def check_kernel_lane(cfg: GAConfig, program: F.FitnessProgram) -> None:
-    """The kernel's validity gate: raises `hopper_reason`'s reason."""
+def check_kernel_lane(cfg: GAConfig, program: F.FitnessProgram,
+                      one_block: bool = True) -> None:
+    """The kernels' validity gate: raises `hopper_reason`'s reason and,
+    for the one-block kernels (K2, K3), `block_reason`'s."""
     reason = hopper_reason(cfg, program)
+    if reason is None and one_block:
+        reason = block_reason(cfg, program)
     if reason is not None:
         raise ValueError(reason)
+
+
+def _check_device(name: str, x) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {x.device}")
 
 
 def _check_shapes(x, sel, cross, mut, cfg: GAConfig, lead: str = "R"
@@ -256,6 +339,14 @@ def _declare(lib) -> None:
         fn.restype = i
     lib.ga_step_error_string.argtypes = [i]
     lib.ga_step_error_string.restype = ctypes.c_char_p
+    lib.ga_ffm_launch.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.ga_ffm_launch.restype = i
+    lib.ga_operators_launch.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.ga_operators_launch.restype = i
+    lib.ga_best_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.ga_best_launch.restype = i
+    lib.ga_global_kernel_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 2
+    lib.ga_global_kernel_attrs.restype = i
 
 
 def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
@@ -263,13 +354,13 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
                          track_best: bool = False
                          ) -> Tuple[torch.Tensor, ...]:
     """Run `gens` fused generations over a stack of replicas (see the
-    module docstring for the contract).  What the kernel cannot take is
-    rejected on every device; then CPU tensors take the plain version and
-    CUDA tensors launch the kernel."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ga_generation_kernel takes CPU or CUDA tensors, "
-                         f"got {x.device}")
-    check_kernel_lane(cfg, program)
+    module docstring for the contract).  What K1 cannot take in any form
+    (`hopper_reason`) is rejected on every device; then CPU tensors take
+    the plain version, and CUDA tensors launch the one-block form where
+    `block_reason` is None, else the global form (`gens` times: the FFM
+    stage, `ga_best_kernel` with `track_best`, `ga_operators_kernel`)."""
+    _check_device("ga_generation_kernel", x)
+    check_kernel_lane(cfg, program, one_block=False)
     _check_shapes(x, sel, cross, mut, cfg)
     if gens < 1:
         raise ValueError(f"gens must be >= 1, got {gens}")
@@ -277,6 +368,9 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
         return ga_generation_plain(x, sel, cross, mut, cfg=cfg,
                                    program=program, gens=gens,
                                    track_best=track_best)
+    if block_reason(cfg, program) is not None:
+        return _global_generations(x, sel, cross, mut, cfg, program, gens,
+                                   track_best)
     x, sel, cross, mut = (t.contiguous() for t in (x, sel, cross, mut))
     r, n, v = x.shape
     dev = x.device
@@ -300,11 +394,174 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
     return tuple(outs) + (y,) + ((by, bx) if track_best else ())
 
 
+def _global_generations(x, sel, cross, mut, cfg, program, gens, track_best):
+    """K1's global form on card tensors: a generation is the FFM stage
+    (`ga_ffm_kernel` for a built-in problem, else the program's PyTorch
+    stage, which the reference executor calls), the best fold and the
+    operators, each a launch.  Returns K1's contract."""
+    builtin = problem_id(program) is not None
+    r = x.shape[0]
+    by = torch.full((r,), math.inf if cfg.minimize else -math.inf,
+                    dtype=torch.float32, device=x.device)
+    bx = torch.zeros((r, cfg.v), dtype=torch.int32, device=x.device)
+    for _ in range(gens):
+        y = (ga_ffm_kernel(x, cfg=cfg, program=program) if builtin
+             else program.stage(x))
+        if track_best:
+            by, bx = ga_best_kernel(x, y, by, bx, minimize=cfg.minimize)
+        x, sel, cross, mut = ga_operators_kernel(x, y, sel, cross, mut,
+                                                 cfg=cfg)
+    return (x, sel, cross, mut, y) + ((by, bx) if track_best else ())
+
+
 def _check_launch(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: CUDA error {err} "
             f"({kernel_library().ga_step_error_string(err).decode()})")
+
+
+# ---------------------------------------------------------------------------
+# K1's global form: one generation as three kernels over global memory
+# ---------------------------------------------------------------------------
+
+
+def _check_tensor(name: str, t, shape, dtype, device) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got "
+                         f"{list(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+
+
+def ga_ffm_plain(x, *, cfg: GAConfig, program: F.FitnessProgram):
+    """`ga_ffm`'s function in plain PyTorch: the program's stage."""
+    return program.stage(x)
+
+
+def ga_ffm_kernel(x, *, cfg: GAConfig, program: F.FitnessProgram
+                  ) -> torch.Tensor:
+    """y f32[R, N]: the FFM stage of a built-in problem over x
+    int32[R, N, V], a thread an individual (`ga_ffm` in the CUDA source);
+    a CPU tensor takes `ga_ffm_plain`."""
+    _check_device("ga_ffm_kernel", x)
+    if problem_id(program) is None:
+        raise ValueError(f"no Hopper FFM stage for this fitness "
+                         f"({program.name!r}): ga_ffm implements the "
+                         f"built-in problems {sorted(PROBLEM_IDS)}")
+    _check_tensor("x", x, x.shape[:1] + (cfg.n, cfg.v), torch.int32,
+                  x.device)
+    if x.device.type == "cpu":
+        return ga_ffm_plain(x, cfg=cfg, program=program)
+    x = x.contiguous()
+    r, n, v = x.shape
+    lo, span = program.device_consts(x.device)
+    y = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    lib = kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ga_ffm_launch(x.data_ptr(), y.data_ptr(), lo.data_ptr(),
+                                span.data_ptr(), r, n, v, cfg.c,
+                                problem_id(program), stream)
+    _check_launch(err, "ga_ffm")
+    LAUNCHES["ga_ffm"] += 1
+    return y
+
+
+def ga_best_plain(x, y, best_y, best_x, *, minimize: bool):
+    """`ga_best`'s function in plain PyTorch: `core.ga.gen_best`, then
+    `fold_best`, as the reference scan folds a generation."""
+    gb, gx = G.gen_best(x, y, minimize)
+    return G.fold_best(best_y, best_x, gb, gx, minimize)
+
+
+def ga_best_kernel(x, y, best_y, best_x, *, minimize: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The running best (best_y f32[R], best_x int32[R, V]) folded with the
+    best of x int32[R, N, V] scored by y f32[R, N]: the first occurrence of
+    the best value, kept on strict improvement, nothing taken where y holds
+    a NaN (`ga_best` in the CUDA source, a block a replica); a CPU tensor
+    takes `ga_best_plain`."""
+    _check_device("ga_best_kernel", x)
+    if x.dim() != 3 or x.dtype != torch.int32:
+        raise ValueError(f"x must be int32 [R, N, V], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    r, n, v = x.shape
+    _check_tensor("y", y, (r, n), torch.float32, x.device)
+    _check_tensor("best_y", best_y, (r,), torch.float32, x.device)
+    _check_tensor("best_x", best_x, (r, v), torch.int32, x.device)
+    if x.device.type == "cpu":
+        return ga_best_plain(x, y, best_y, best_x, minimize=minimize)
+    x, y, best_y, best_x = (t.contiguous() for t in (x, y, best_y, best_x))
+    by = torch.empty_like(best_y)
+    bx = torch.empty_like(best_x)
+    lib = kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ga_best_launch(x.data_ptr(), y.data_ptr(),
+                                 best_y.data_ptr(), best_x.data_ptr(),
+                                 by.data_ptr(), bx.data_ptr(), r, n, v,
+                                 int(minimize), stream)
+    _check_launch(err, "ga_best")
+    LAUNCHES["ga_best"] += 1
+    return by, bx
+
+
+def ga_operators_plain(x, y, sel, cross, mut, *, cfg: GAConfig):
+    """`ga_operators`' function in plain PyTorch:
+    `core.ga.generation_with_y`, the reference's SM, CM and MM."""
+    k = torch.zeros(x.shape[:1], dtype=torch.int32, device=x.device)
+    st = G.generation_with_y(G.GAState(x, sel, cross, mut, k), y, cfg)
+    return st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr
+
+
+def ga_operators_kernel(x, y, sel, cross, mut, *, cfg: GAConfig
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(x', sel', cross', mut'): the tournaments, crossover and mutation of
+    one generation over a stack [R, ...] scored by y f32[R, N], a thread a
+    pair (`ga_operators` in the CUDA source); a CPU tensor takes
+    `ga_operators_plain`.  N must be a power of two (the tournament
+    indices are the top idx_bits of a draw)."""
+    _check_device("ga_operators_kernel", x)
+    if cfg.n & (cfg.n - 1):
+        raise ValueError(f"N={cfg.n}: ga_operators draws tournament indices "
+                         "from the top idx_bits LFSR bits and requires a "
+                         "power-of-two N")
+    _check_shapes(x, sel, cross, mut, cfg)
+    _check_tensor("y", y, x.shape[:2], torch.float32, x.device)
+    if x.device.type == "cpu":
+        return ga_operators_plain(x, y, sel, cross, mut, cfg=cfg)
+    x, y, sel, cross, mut = (t.contiguous() for t in (x, y, sel, cross, mut))
+    r, n, v = x.shape
+    outs = [torch.empty_like(t) for t in (x, sel, cross, mut)]
+    lib = kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ga_operators_launch(
+            x.data_ptr(), y.data_ptr(), sel.data_ptr(), cross.data_ptr(),
+            mut.data_ptr(), *(t.data_ptr() for t in outs), r, n, v, cfg.c,
+            cfg.idx_bits, cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
+            int(cfg.minimize), stream)
+    _check_launch(err, "ga_operators")
+    LAUNCHES["ga_generation:global"] += 1
+    return tuple(outs)
+
+
+GLOBAL_KERNEL_IDS = {"ga_ffm": 0, "ga_operators": 1, "ga_best": 2}
+
+
+def global_kernel_attrs(name: str) -> Dict[str, int]:
+    """Registers and local (spill and stack) bytes a thread of the global
+    form's kernel `name` (cudaFuncGetAttributes); needs a card."""
+    import ctypes
+    lib = kernel_library()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    _check_launch(lib.ga_global_kernel_attrs(
+        GLOBAL_KERNEL_IDS[name], ctypes.byref(regs), ctypes.byref(local)),
+        f"{name} attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +696,9 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
                           migration: str, gens_per_epoch: int,
                           migrate_every: int, groups: int = 1,
                           device=None, sharded: bool = False,
-                          budget: Optional[int] = None) -> list:
+                          budget: Optional[int] = None,
+                          program: Optional[F.FitnessProgram] = None
+                          ) -> list:
     """The launch shapes an island-ring spec can run on Hopper, ordered so
     candidates[0] is the heuristic choice.  The structure and the order are
     the JAX package's `epoch_mode_candidates` (they decide
@@ -453,7 +712,10 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
     smem_budget`) refuses the resident shapes whose blocks exceed it and
     offers the streamed mode where one K3 block fits it, as the JAX
     package's VMEM budget does; None leaves every list as the card's own
-    limits give it.
+    limits give it.  Given the executor's `program`, an island the one-block
+    kernels cannot take (`block_reason`: no FFM stage in CUDA, or past a
+    block's shared memory) plans gridded only, K1's global form a launch,
+    with that reason as the fallback.
 
     Each candidate is a plan dict: {"mode", "lane", "epochs_per_launch",
     "gens_per_launch"} (+ "fallback", the limit that refused the resident
@@ -464,6 +726,9 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
                "epochs_per_launch": 1, "gens_per_launch": g_gridded}
     if executor != "fused":
         return [gridded]
+    reason = block_reason(cfg, program) if program is not None else None
+    if reason is not None:
+        return [dict(gridded, fallback=reason)]
     k = max(1, gens_per_epoch // migrate_every)
     if migration == "ring" and gens_per_epoch >= migrate_every:
         reason = resident_fit_reason(cfg, i_local, budget=budget)
@@ -590,8 +855,7 @@ def ga_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
 
 def _check_epoch(name, x, sel, cross, mut, cfg, program, migrate_every,
                  intervals) -> None:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} takes CPU or CUDA tensors, got {x.device}")
+    _check_device(name, x)
     check_kernel_lane(cfg, program)
     _check_shapes(x, sel, cross, mut, cfg, lead="GI")
     if migrate_every < 1 or intervals < 1:

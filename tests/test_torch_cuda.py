@@ -96,15 +96,102 @@ def test_shared_memory_formula_matches_kernel(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda_device):
+    """A non-power-of-two N is refused in every form; a replica past a
+    block's shared memory (N=8192, V=2) takes K1's global form, never the
+    one-block launch."""
+    prog = TF.compile_program(problem="F3", bits_per_var=10)
+    odd = TG.GAConfig(n=48, c=10, v=2, seed=1, mode="arith")
+    st = _stack(odd, 1, cuda_device)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="power-of-two"):
+        K.ga_generation_kernel(st.x, st.sel_lfsr, st.cross_lfsr,
+                               st.mut_lfsr, cfg=odd, program=prog)
+    assert K.LAUNCHES == before
     cfg = TG.GAConfig(n=8192, c=10, v=2, seed=1, mode="arith",
                       sel_lane="gather")
-    prog = TF.compile_program(problem="F3", bits_per_var=10)
+    assert "shared memory" in K.block_reason(cfg, prog)
     st = _stack(cfg, 1, cuda_device)
-    before = K.LAUNCHES["ga_generation"]
-    with pytest.raises(ValueError, match="shared memory"):
-        K.ga_generation_kernel(st.x, st.sel_lfsr, st.cross_lfsr,
-                               st.mut_lfsr, cfg=cfg, program=prog)
-    assert K.LAUNCHES["ga_generation"] == before
+    K.ga_generation_kernel(st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr,
+                           cfg=cfg, program=prog, gens=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_generation"] == before["ga_generation"]
+    assert K.LAUNCHES["ga_generation:global"] == \
+        before["ga_generation:global"] + 2
+
+
+# the smallest of chip_smoke.py phase 17 (c)'s shapes past one block
+GLOBAL_SHAPE = ("rastrigin:2", 8192, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minimize", [True, False])
+def test_global_form_kernels_match_plain(cuda_device, minimize):
+    """ga_ffm, ga_best and ga_operators each equal their plain twin on the
+    same card tensors, bit for bit, and so does K1's global form over a few
+    generations."""
+    problem, n, replicas = GLOBAL_SHAPE
+    prog = TF.compile_program(problem=problem, bits_per_var=16)
+    cfg = TG.GAConfig(n=n, c=16, v=prog.n_vars, seed=3, minimize=minimize,
+                      mode="arith", sel_lane="gather")
+    assert K.block_reason(cfg, prog) is not None
+    st = _stack(cfg, replicas, cuda_device)
+    before = dict(K.LAUNCHES)
+    y = K.ga_ffm_kernel(st.x, cfg=cfg, program=prog)
+    assert torch.equal(y, K.ga_ffm_plain(st.x, cfg=cfg, program=prog))
+    y[0, 7] = y[0, 3] = y[0].min() - 1.0 if minimize else y[0].max() + 1.0
+    by = torch.full((replicas,), np.inf if minimize else -np.inf,
+                    device=cuda_device)
+    by[1] = y[1].median()
+    bx = torch.arange(replicas * 2, dtype=torch.int32,
+                      device=cuda_device).reshape(replicas, 2)
+    got = K.ga_best_kernel(st.x, y, by, bx, minimize=minimize)
+    want = K.ga_best_plain(st.x, y, by, bx, minimize=minimize)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got[1][0], st.x[0, 3])
+    banks = (st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)
+    got = K.ga_operators_kernel(st.x, y, *banks, cfg=cfg)
+    want = K.ga_operators_plain(st.x, y, *banks, cfg=cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == {
+        "ga_generation": 0, "ga_epoch": 0, "ga_streamed_epoch": 0,
+        "ga_generation:global": 1, "ga_ffm": 1, "ga_best": 1}
+    args = (st.x,) + banks
+    for track in (True, False):
+        kw = dict(cfg=cfg, program=prog, gens=3, track_best=track)
+        got = K.ga_generation_kernel(*args, **kw)
+        want = K.ga_generation_plain(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_fused_blackbox_matches_reference_on_card(cuda_device):
+    """A blackbox that closes over card tensors runs `fused` through K1's
+    global form, its PyTorch stage in the FFM's place: equal to
+    `reference` in state, best and trajectory."""
+    target = torch.tensor([0.5, -1.0, 2.0], device=cuda_device)
+    weights = torch.tensor([1.0, 2.0, 4.0], device=cuda_device)
+    spec = ga.GASpec(
+        fitness=lambda p: torch.sum(weights * (p - target) ** 2, dim=-1),
+        bounds=((-4.0, 4.0),) * 3, n=1024, bits_per_var=16,
+        mutation_rate=0.05, seed=0, generations=24, n_repeats=8,
+        gens_per_epoch=8)
+    before = dict(K.LAUNCHES)
+    f = ga.solve(spec, backend="fused")
+    assert f.backend == "fused"
+    ran = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    assert ran["ga_generation"] == 0 and ran["ga_ffm"] == 0
+    assert ran["ga_generation:global"] == ran["ga_best"] == 24
+    r = ga.solve(dataclasses.replace(spec, gens_per_epoch=1),
+                 backend="reference")
+    for a, b in zip(convert.state_to_numpy(f.state)[:4],
+                    convert.state_to_numpy(r.state)[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert f.best_fitness == r.best_fitness
+    np.testing.assert_array_equal(f.best_x, r.best_x)
+    np.testing.assert_array_equal(f.traj_best, r.traj_best[7::8])
+    fr, rr = f.telemetry.per_repeat, r.telemetry.per_repeat
+    np.testing.assert_array_equal(fr.traj_best, rr.traj_best[:, 7::8])
+    np.testing.assert_array_equal(fr.traj_mean, rr.traj_mean[:, 7::8])
 
 
 @pytest.mark.cuda
@@ -285,7 +372,8 @@ def test_streamed_solve_makes_one_launch_per_k_intervals(
     assert got.telemetry.plan.mode == "streamed"
     assert got.telemetry.topology.launches == launches
     assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
-        "ga_generation": 0, "ga_epoch": 0, "ga_streamed_epoch": launches}
+        "ga_generation": 0, "ga_epoch": 0, "ga_streamed_epoch": launches,
+        "ga_generation:global": 0, "ga_ffm": 0, "ga_best": 0}
     _assert_same_solve(got, ref, traj=False)
 
 
@@ -406,7 +494,8 @@ def test_generation_body_matches_plain(cuda_device, problem, n, steps,
             K.ga_streamed_epoch_plain(*eargs, **ring), exact)
     torch.cuda.synchronize()
     assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
-        "ga_generation": 2, "ga_epoch": 3, "ga_streamed_epoch": 4}
+        "ga_generation": 2, "ga_epoch": 3, "ga_streamed_epoch": 4,
+        "ga_generation:global": 0, "ga_ffm": 0, "ga_best": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -154,15 +154,28 @@ def test_capability_matrix_and_fallback():
     cases = {
         "mode='arith'": dict(mode="lut"),
         "power-of-two": dict(n=48),
-        "bytes of shared memory": dict(problem="sphere:8", n=4096),
-        "no Hopper FFM stage": dict(problem=None, bounds=((-1.0, 1.0),) * 2,
-                                    fitness=lambda p: (p * p).sum(-1)),
     }
     for needle, bad in cases.items():
         spec = ga.GASpec(**_kw(**bad))
         assert needle in ga.capability_matrix(spec)["fused"]
         with pytest.warns(UserWarning, match="falling back to 'reference'"):
             assert ga.resolve_backend(spec, "fused", "cuda") == "reference"
+    # past a block's shared memory, and with no FFM stage in CUDA, the
+    # one-block form refuses but K1's global form runs it, as JAX's fused
+    # kernel does
+    for needle, wide in {
+            "bytes of shared memory": dict(problem="sphere:8", n=4096),
+            "no Hopper FFM stage": dict(problem=None,
+                                        bounds=((-1.0, 1.0),) * 2,
+                                        fitness=lambda p: (p * p).sum(-1)),
+    }.items():
+        spec = ga.GASpec(**_kw(**wide))
+        assert ga.capability_matrix(spec)["fused"] is None
+        assert needle in K.block_reason(spec.ga_config(), spec.program())
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert ga.resolve_backend(spec, "fused", "cuda") == "fused"
+            assert ga.resolve_backend(spec, "auto", "cuda") == "fused"
     with pytest.raises(ga.BackendUnsupported):
         ga.resolve_backend(ok, "no-such-backend")
     with warnings.catch_warnings():
@@ -177,10 +190,15 @@ def test_blackbox_and_lut_run_on_reference():
     spec = ga.GASpec(fitness=lambda p: ((p - target) ** 2).sum(-1),
                      bounds=((-4.0, 4.0),) * 3, n=32, bits_per_var=12,
                      mutation_rate=0.05, seed=13, generations=30)
-    with pytest.warns(UserWarning):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         r = ga.solve(spec, backend="fused", options=CPU)
-    assert r.backend == "reference" and r.best_params.shape == (3,)
+    ref = ga.solve(spec, backend="reference", options=CPU)
+    assert r.backend == "fused" and r.best_params.shape == (3,)
     assert r.best_fitness < 1.0
+    assert r.best_fitness == ref.best_fitness
+    np.testing.assert_array_equal(r.best_x, ref.best_x)
+    np.testing.assert_array_equal(r.traj_best, ref.traj_best)
     lut = ga.GASpec(**_kw(problem="F1", mode="lut", generations=20))
     jr = JGA.solve(JGA.GASpec(**_kw(problem="F1", mode="lut",
                                     generations=20)), backend="reference")

@@ -20,9 +20,10 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("name,expect", [
     ("torch_quickstart.py", ["F1 best fitness", "F3 [fused    ]",
                              "evolve() found"]),
-    ("torch_custom_fitness.py", ["blackbox [fused    ] ran on reference",
+    ("torch_custom_fitness.py", ["blackbox [fused    ] ran on fused",
                                  "blackbox [auto     ] ran on reference",
-                                 "styblinski_tang:6", "ackley:8"]),
+                                 "styblinski_tang:6 [fused-islands]",
+                                 "ackley:8"]),
 ])
 def test_example_runs_on_the_cpu(name, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -167,8 +167,9 @@ def test_wrapper_rejects_non_pow2_population():
 
 
 def test_wrapper_rejects_population_past_shared_memory():
-    """N=8192, V=2 needs more shared memory than a Hopper block has; the
-    wrapper names the bytes and the limit instead of clipping.  P (here
+    """N=8192, V=2 needs more shared memory than a Hopper block has:
+    `block_reason` names the bytes and the limit, and the wrapper runs K1's
+    global form instead (on the CPU, the plain version).  P (here
     ceil(0.01 N)) counts where its rows fit."""
     tcfg = TG.GAConfig(n=8192, c=10, v=2, seed=1, mode="arith",
                        sel_lane="gather")
@@ -177,11 +178,16 @@ def test_wrapper_rejects_population_past_shared_memory():
                                                                      41)
     assert K.smem_bytes(1024, 8, 1024) <= K.SMEM_LIMIT
     prog = TF.compile_program(problem="F3", bits_per_var=10)
+    assert K.hopper_reason(tcfg, prog) is None
+    assert f"{K.smem_bytes(8192, 2, 82)} bytes" in K.block_reason(tcfg, prog)
     st = TG.stack_states([TG.init_state(tcfg, device="cpu")])
-    with pytest.raises(ValueError,
-                       match=f"{K.smem_bytes(8192, 2, 82)} bytes"):
-        K.ga_generation_kernel(st.x, st.sel_lfsr, st.cross_lfsr,
-                               st.mut_lfsr, cfg=tcfg, program=prog)
+    args = (st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)
+    got = K.ga_generation_kernel(*args, cfg=tcfg, program=prog, gens=2,
+                                 track_best=True)
+    want = K.ga_generation_plain(*args, cfg=tcfg, program=prog, gens=2,
+                                 track_best=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # The largest V a block takes at N in {1024, 2048, 4096}, at any mutation
@@ -200,13 +206,16 @@ def test_footprint_admits_the_largest_shape_at_any_mutation_rate(n, v):
         cfg = TG.GAConfig(n=n, c=10, v=v, mutation_rate=rate, mode="arith",
                           sel_lane="gather")
         assert K.hopper_reason(cfg, prog) is None
+        assert K.block_reason(cfg, prog) is None
         assert K.epoch_smem_reason(cfg) is None
         wider = dataclasses.replace(cfg, v=v + 1)
         need = K.smem_bytes(n, v + 1, wider.p)
         assert need > K.SMEM_LIMIT
-        assert f"P={wider.p} needs {need} bytes" in K.hopper_reason(
-            wider, TF.compile_program(problem=f"sphere:{v + 1}",
-                                      bits_per_var=10))
+        wprog = TF.compile_program(problem=f"sphere:{v + 1}",
+                                   bits_per_var=10)
+        assert f"P={wider.p} needs {need} bytes" in K.block_reason(wider,
+                                                                   wprog)
+        assert K.hopper_reason(wider, wprog) is None
 
 
 # (N, V, P, whether the mutation rows below P fit in shared memory)
@@ -247,11 +256,23 @@ def test_wrapper_rejects_fitness_without_hopper_stage():
     custom = dataclasses.replace(
         TF.compile_program(problem="sphere:2", bits_per_var=8),
         fn=lambda v: (v * v).sum(-1))
+    args = (st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)
     for prog in (blackbox, custom):
+        # the one-block form has no FFM stage for them; K1's global form
+        # runs their PyTorch stage (on the CPU, the plain version)
         assert K.problem_id(prog) is None
+        assert "no Hopper FFM stage" in K.block_reason(tcfg, prog)
+        assert K.hopper_reason(tcfg, prog) is None
+        before = dict(K.LAUNCHES)
+        got = K.ga_generation_kernel(*args, cfg=tcfg, program=prog, gens=3,
+                                     track_best=True)
+        want = K.ga_generation_plain(*args, cfg=tcfg, program=prog, gens=3,
+                                     track_best=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert K.LAUNCHES == before
         with pytest.raises(ValueError, match="no Hopper FFM stage"):
-            K.ga_generation_kernel(st.x, st.sel_lfsr, st.cross_lfsr,
-                                   st.mut_lfsr, cfg=tcfg, program=prog)
+            K.ga_ffm_kernel(st.x, cfg=tcfg, program=prog)
 
 
 def test_wrapper_onehot_cap_and_launch_counter_on_cpu():
