@@ -997,37 +997,87 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
 // (a blackbox or a problem the user registered).  The TPU kernel takes both:
 // its population lives in VMEM, which holds megabytes, and it traces any
 // fitness into its body.  Here one generation of a stack [R, N, V] is three
-// kernels that leave the state in global memory, in the wrappers' layouts:
+// kernels that leave the state in global memory, in the wrappers' layouts;
+// each replaces a part of src/repro/kernels/ga_step.py:600
+// `ga_generation_kernel` in this form:
 //
 //   ga_ffm        y [R, N] of x: the built-in problems' `ffm<1>` a thread
 //                 an individual (for any other fitness the wrapper calls
 //                 its PyTorch stage instead: CUDA cannot take a Python
 //                 function, and the stage is what the reference runs);
 //   ga_best       the running best (best_y [R], best_x [R, V]) folded with
-//                 x's best: a block a replica reduces y with `takes`' first
-//                 occurrence rule and keeps a strict improvement; a NaN
-//                 anywhere in y leaves it as it was (the plain version's
-//                 argmin picks the NaN, which its strict compare refuses);
-//   ga_operators  x' and the banks advanced one generation from x and y: a
-//                 thread a pair, as `generation` runs it — two tournaments,
-//                 the crossover of each variable, the XOR mutation of the
-//                 rows below P — reading parents from global memory at any
-//                 index.  Every word of the mutation bank is clocked, as the
-//                 plain version clocks it (the one-block form leaps the rows
-//                 at and past P once at its store).
+//                 x's best, with `takes`' first-occurrence rule and strict
+//                 improvement; a NaN anywhere in y leaves it as it was (the
+//                 plain version's argmin picks the NaN, which its strict
+//                 compare refuses);
+//   ga_operators  x' and the banks advanced one generation from x and y, as
+//                 `generation` runs it: two tournaments a pair, the
+//                 crossover of each variable, the XOR mutation of the rows
+//                 below P, parents read at any index.  Every word of the
+//                 mutation bank is clocked, as the plain version clocks it
+//                 (the one-block form leaps the rows at and past P once at
+//                 its store).
 //
 // A kernel boundary orders the steps; the wrapper launches the three once a
-// generation.  Each is bound by the bytes it moves: a generation reads and
-// writes the state once in ga_operators (N*V + 2N + V*N/2 + V*N words a
-// replica each way) and reads x and y again in ga_ffm and ga_best, a few
-// operations a byte, far below the card's issue rate.  A simple kernel that
-// is right comes first: no shared-memory tiling, no grid-wide loop over the
-// generations, the LFSR clocks read at run time.  Built with the flags of
-// the whole file, so the FFM rounds as the plain version does.
+// generation.  Each is bound by the bytes it moves, at a few integer
+// operations a word, far below the card's issue rate.  Built with the
+// flags of the whole file, so the FFM rounds as the plain version does.
+//
+// ga_operators moves N*V + 2N + V*N/2 + V*N words a replica each way and
+// reads y: 62.9 MB at rastrigin:2, N = 65536 x 16, 18.8 us at 3.35 TB/s.
+// A thread a pair looping over V would put a child's words 2V apart across
+// a warp's lanes and read one word of a random row a lane: at V >= 8 a
+// store touches 32 sectors for 128 useful bytes.  So a block takes a tile
+// of T consecutive pairs of one replica and a chunk of Vc variables (the
+// wrapper's `operators_tiling` picks both, the launcher checks them), and
+// every global access of x, x' and the banks is contiguous across a warp:
+//   1. a thread a pair loads its two selection words of each bank row as
+//      one 8-byte word, clocks them and runs the two tournaments; the
+//      winners go to shared memory (only chunk 0 stores the clocked bank,
+//      the other chunks recompute the same winners);
+//   2. the block copies the words [j0, j0 + Vc) of the 2T parent rows into
+//      the tile, consecutive threads on consecutive words of a row;
+//   3. a thread a (pair, variable), pairs fastest, clocks cross[j, pr] and
+//      mut[j, a..a+1] (one 8-byte word), so the banks are read and written
+//      along N, and crosses and mutates the pair's two slots in place (no
+//      other thread reads them); the row stride Vc | 1 is odd, so the
+//      lanes' slots fall in distinct banks;
+//   4. the 2T children are rows 2*pr0 .. 2*pr0 + 2T - 1 of x': when Vc = V
+//      one contiguous range, stored 16 bytes a thread where aligned, else
+//      a contiguous chunk a row.
+// A tile stays within 27 KB and a thread within 32 registers (8 bytes
+// spill; uncapped it takes 47, five blocks an SM), so eight blocks of 256
+// threads share an SM; the wrapper halves the tile while the grid is short
+// of 512 blocks, down to 512 items a tile (scripts/torch_global_tiles_sweep.py
+// times the tiles around its choice on a card).
+//
+// ga_best reads y (4N bytes a replica) and one row; a block a replica would
+// leave most SMs idle at a few replicas (16 of 132 at R = 16).  So a
+// replica is one thread-block cluster of B <= kMaxCluster blocks (the
+// wrapper's `best_split` picks B and the slice length):
+//   1. each block folds a contiguous slice of the replica's y with 16-byte
+//      loads (a scalar head and tail where the row is not aligned: N is
+//      only even), keeping `takes`' rule and a NaN flag, and leaves its
+//      partial (value, index, NaN) in its own shared memory;
+//   2. after a cluster barrier, rank 0 reads the B partials through
+//      distributed shared memory, one lane a rank, and folds them with the
+//      same rule, so the result is the same whatever order the blocks ran
+//      in; a second barrier keeps every block (and its shared memory)
+//      alive until then;
+//   3. rank 0 compares strictly with by_in and copies the row of x or of
+//      bx_in with all its threads.
 // ---------------------------------------------------------------------------
 
-constexpr int kGlobalThreads = 256;  // ga_ffm, ga_operators: a thread an item
-constexpr int kBestThreads = 512;    // ga_best: a block a replica
+constexpr int kGlobalThreads = 256;  // ga_ffm: an item a thread; ga_operators
+constexpr int kBestThreads = 512;    // ga_best: a block a slice of a replica
+constexpr int kOpsBlocks = 8;        // ga_operators blocks an SM holds
+constexpr int kOpsSmemLimit = 27648; // bytes of a tile: 8 x (27 + 1) KB an SM
+
+// Words of a ga_operators tile of `tile` pairs and `chunk` variables: the
+// 2T parent (then child) rows at the odd stride chunk | 1, and 2T winners.
+__host__ __device__ inline size_t ops_tile_words(int tile, int chunk) {
+  return 2 * (size_t)tile * (chunk | 1) + 2 * (size_t)tile;
+}
 
 // y[r, i]: the FFM of individual i of replica r, one thread each.
 __global__ void __launch_bounds__(kGlobalThreads)
@@ -1056,99 +1106,252 @@ struct Operators {
   uint32_t* mut_out;
 };
 
-// SM, CM and MM of one generation, a thread a pair (a = 2pr, b = a + 1) of
-// replica r, for `pairs` = R * N/2 pairs.
-__global__ void __launch_bounds__(kGlobalThreads)
-ga_operators(const Operators O, const Shape S, size_t pairs) {
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= pairs) return;
-  const int n = S.n, v = S.v, half = n / 2, p = S.p, steps = S.steps;
-  const size_t r = t / (size_t)half;
-  const int pr = (int)(t - r * half), a = 2 * pr, b = a + 1;
-  const bool minimize = S.minimize != 0;
-  const uint32_t mask = (1u << S.c) - 1u;
-  const int sel_shift = 32 - S.idx_bits, cut_shift = 32 - S.cut_bits,
-            mut_shift = 32 - S.c;
-  const uint32_t* x = O.x + r * n * v;
-  const float* y = O.y + r * n;
-  const size_t osel = r * 2 * n, ocross = r * v * half, omut = r * v * n;
-  // ---- SM: the pair's two tournaments -------------------------------------
-  const size_t at[4] = {osel + a, osel + b, osel + n + a, osel + n + b};
-  uint32_t d[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    d[k] = lfsr_advance(O.sel[at[k]], steps);
-    O.sel_out[at[k]] = d[k];
+// A walk over the words w = k * width + j of a row-major range, `step`
+// words at a time, without a division a step.
+struct RowWalk {
+  int k, j, dk, dj, width;
+  __device__ __forceinline__ RowWalk(int w, int step, int width_)
+      : k(w / width_), j(w - (w / width_) * width_), dk(step / width_),
+        dj(step - (step / width_) * width_), width(width_) {}
+  __device__ __forceinline__ void next() {
+    k += dk;
+    j += dj;
+    if (j >= width) {
+      j -= width;
+      ++k;
+    }
   }
-  int i1 = (int)(d[0] >> sel_shift), i2 = (int)(d[2] >> sel_shift);
-  const int wa = (minimize ? y[i1] <= y[i2] : y[i1] >= y[i2]) ? i1 : i2;
-  i1 = (int)(d[1] >> sel_shift);
-  i2 = (int)(d[3] >> sel_shift);
-  const int wb = (minimize ? y[i1] <= y[i2] : y[i1] >= y[i2]) ? i1 : i2;
-  // ---- CM + MM: per variable, crossover then XOR mutation -----------------
-  uint32_t* za = O.x_out + (r * n + a) * v;   // child a's row; b's follows
-  for (int j = 0; j < v; ++j) {
-    const size_t oc = ocross + (size_t)j * half + pr;
-    const uint32_t cw = lfsr_advance(O.cross[oc], steps);
-    O.cross_out[oc] = cw;
-    uint32_t cut = cw >> cut_shift;
-    cut = cut < (uint32_t)S.c ? cut : (uint32_t)S.c;
-    const uint32_t sm = mask >> cut;
-    const uint32_t w1 = x[(size_t)wa * v + j], w2 = x[(size_t)wb * v + j];
-    uint32_t z1 = (w1 & ~sm) | (w2 & sm);
-    uint32_t z2 = (w2 & ~sm) | (w1 & sm);
-    const size_t om = omut + (size_t)j * n + a;
-    const uint32_t ma = lfsr_advance(O.mut[om], steps),
-                   mb = lfsr_advance(O.mut[om + 1], steps);
-    O.mut_out[om] = ma;
-    O.mut_out[om + 1] = mb;
-    if (a < p) z1 ^= ma >> mut_shift;
-    if (b < p) z2 ^= mb >> mut_shift;
-    za[j] = z1;
-    za[v + j] = z2;
+  __device__ __forceinline__ void next_word() {
+    if (++j == width) {
+      j = 0;
+      ++k;
+    }
+  }
+};
+
+// SM, CM and MM of one generation.  Block (b, chunk) of the grid
+// (R * N/2 / tile, ceil(V / chunk)) takes pairs [pr0, pr0 + tile) of
+// replica b / (N/2 / tile) and variables [j0, j0 + chunk), in the four
+// steps of the note above.  tile is a power of two dividing N/2.
+__global__ void __launch_bounds__(kGlobalThreads, kOpsBlocks)
+ga_operators(const Operators O, const Shape S, int tile, int chunk) {
+  extern __shared__ uint32_t smem[];
+  const int n = S.n, v = S.v, half = n / 2, p = S.p, steps = S.steps;
+  const int tiles = half / tile;
+  const size_t r = blockIdx.x / tiles;
+  const int pr0 = (int)(blockIdx.x - r * tiles) * tile;
+  const int j0 = blockIdx.y * chunk;
+  const int vc = min(chunk, v - j0), stride = chunk | 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // rows [0, tile): the first parents (then children a), [tile, 2 tile):
+  // the second (then children b); win: the parents' indices, in that order
+  uint32_t* rows = smem;
+  int* win = (int*)(smem + 2 * (size_t)tile * stride);
+  const bool minimize = S.minimize != 0;
+  // ---- 1. SM: a thread a pair, its two tournaments ------------------------
+  {
+    const float* y = O.y + r * n;
+    const int sel_shift = 32 - S.idx_bits;
+    for (int q = tid; q < tile; q += nt) {
+      const size_t at0 = r * 2 * n + 2 * (pr0 + q), at1 = at0 + n;
+      uint2 d0 = *(const uint2*)(O.sel + at0);   // sel[0, a], sel[0, b]
+      uint2 d1 = *(const uint2*)(O.sel + at1);   // sel[1, a], sel[1, b]
+      d0.x = lfsr_advance(d0.x, steps);
+      d0.y = lfsr_advance(d0.y, steps);
+      d1.x = lfsr_advance(d1.x, steps);
+      d1.y = lfsr_advance(d1.y, steps);
+      if (blockIdx.y == 0) {
+        *(uint2*)(O.sel_out + at0) = d0;
+        *(uint2*)(O.sel_out + at1) = d1;
+      }
+      const int i1 = (int)(d0.x >> sel_shift), i2 = (int)(d1.x >> sel_shift);
+      const int i3 = (int)(d0.y >> sel_shift), i4 = (int)(d1.y >> sel_shift);
+      const float y1 = __ldg(y + i1), y2 = __ldg(y + i2);
+      const float y3 = __ldg(y + i3), y4 = __ldg(y + i4);
+      win[q] = (minimize ? y1 <= y2 : y1 >= y2) ? i1 : i2;
+      win[tile + q] = (minimize ? y3 <= y4 : y3 >= y4) ? i3 : i4;
+    }
+  }
+  __syncthreads();
+  // ---- 2. the parents' words [j0, j0 + vc) into the tile ------------------
+  const uint32_t* x = O.x + r * n * v + j0;
+  const int words = 2 * tile * vc;
+  {
+    RowWalk at(tid, nt, vc);
+#pragma unroll 4
+    for (int w = tid; w < words; w += nt, at.next())
+      rows[at.k * stride + at.j] = __ldg(x + (size_t)win[at.k] * v + at.j);
+  }
+  __syncthreads();
+  // ---- 3. CM + MM: a thread a (pair, variable), pairs fastest -------------
+  {
+    const uint32_t mask = (1u << S.c) - 1u;
+    const int cut_shift = 32 - S.cut_bits, mut_shift = 32 - S.c;
+    const int lg = __ffs(tile) - 1;
+    const size_t ocross = r * v * half, omut = r * v * n;
+    for (int q = tid; q < tile * vc; q += nt) {
+      const int pq = q & (tile - 1), jj = q >> lg, j = j0 + jj;
+      const int pr = pr0 + pq, a = 2 * pr;
+      const size_t oc = ocross + (size_t)j * half + pr;
+      const uint32_t cw = lfsr_advance(O.cross[oc], steps);
+      O.cross_out[oc] = cw;
+      uint32_t cut = cw >> cut_shift;
+      cut = cut < (uint32_t)S.c ? cut : (uint32_t)S.c;
+      const uint32_t sm = mask >> cut;
+      uint32_t* s1 = rows + pq * stride + jj;
+      uint32_t* s2 = rows + (tile + pq) * stride + jj;
+      const uint32_t w1 = *s1, w2 = *s2;
+      uint32_t z1 = (w1 & ~sm) | (w2 & sm);
+      uint32_t z2 = (w2 & ~sm) | (w1 & sm);
+      const size_t om = omut + (size_t)j * n + a;
+      uint2 m = *(const uint2*)(O.mut + om);     // mut[j, a], mut[j, b]
+      m.x = lfsr_advance(m.x, steps);
+      m.y = lfsr_advance(m.y, steps);
+      *(uint2*)(O.mut_out + om) = m;
+      if (a < p) z1 ^= m.x >> mut_shift;
+      if (a + 1 < p) z2 ^= m.y >> mut_shift;
+      *s1 = z1;
+      *s2 = z2;
+    }
+  }
+  __syncthreads();
+  // ---- 4. the children: rows 2 pr0 .. 2 pr0 + 2 tile - 1 of x' ------------
+  // child row k is child a (k even) or b (k odd) of pair k / 2
+  uint32_t* out = O.x_out + (r * n + 2 * (size_t)pr0) * v + j0;
+  auto child = [&](const RowWalk& at) {
+    return rows[((at.k & 1) * tile + (at.k >> 1)) * stride + at.j];
+  };
+  if (vc == v) {   // one contiguous range of 2 tile V words
+    const int head =
+        min(words, (int)((16 - ((uintptr_t)out & 15)) & 15) >> 2);
+    const int body = (words - head) >> 2;
+    if (tid < head) {
+      RowWalk at(tid, nt, v);
+      out[tid] = child(at);
+    }
+    RowWalk at(head + 4 * tid, 4 * nt, v);
+    for (int q = tid; q < body; q += nt, at.next()) {
+      RowWalk e = at;
+      uint4 u;
+      u.x = child(e);
+      e.next_word();
+      u.y = child(e);
+      e.next_word();
+      u.z = child(e);
+      e.next_word();
+      u.w = child(e);
+      *(uint4*)(out + head + 4 * q) = u;
+    }
+    const int w = head + 4 * body + tid;
+    if (w < words) {
+      RowWalk t(w, nt, v);
+      out[w] = child(t);
+    }
+  } else {         // a contiguous chunk a row
+    RowWalk at(tid, nt, vc);
+    for (int w = tid; w < words; w += nt, at.next())
+      out[(size_t)at.k * v + at.j] = child(at);
   }
 }
 
-// The running best of each replica folded with the best of (x, y): a block
-// a replica.  by_out, bx_out may alias by_in, bx_in.
+// One value of a slice into a thread's running (first-occurrence) best and
+// NaN flag.
+__device__ __forceinline__ void see_value(float yi, int i, float& bv,
+                                          int& bi, bool& nan, bool mini) {
+  nan |= isnan(yi);
+  if (takes(yi, i, bv, bi, mini)) {
+    bv = yi;
+    bi = i;
+  }
+}
+
+// The running best of each replica folded with the best of (x, y): a
+// cluster of B blocks a replica, block `rank` folding y[rank * slice,
+// min(N, (rank + 1) * slice)) (see the note above).  by_out, bx_out may
+// alias by_in, bx_in.
 __global__ void __launch_bounds__(kBestThreads)
 ga_best(const uint32_t* x, const float* y, const float* by_in,
         const uint32_t* bx_in, float* by_out, uint32_t* bx_out, int n,
-        int v, int minimize) {
+        int v, int slice, int minimize) {
   __shared__ float wv[kBestThreads / 32];
   __shared__ int wi[kBestThreads / 32];
-  const size_t r = blockIdx.x;
+  __shared__ float part_v;     // this block's best of its slice
+  __shared__ int part_i, part_nan;
+  __shared__ float fin_v;      // rank 0: the replica's best
+  __shared__ int fin_i, fin_nan;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int blocks = (int)cluster.num_blocks();
+  const size_t r = blockIdx.x / blocks;
   const bool mini = minimize != 0;
+  const float old = rank == 0 ? by_in[r] : 0.0f;   // read before any write
   const float* yr = y + r * n;
+  const int tid = threadIdx.x;
+  const int lo = rank * slice, len = min(n, lo + slice) - lo;
   float bv = worst_value(mini);
   int bi = 0x7fffffff;
   bool nan = false;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float yi = yr[i];
-    nan |= isnan(yi);
-    if (takes(yi, i, bv, bi, mini)) {
-      bv = yi;
-      bi = i;
+  if (len > 0) {
+    const int head =
+        min(len, (int)((16 - ((uintptr_t)(yr + lo) & 15)) & 15) >> 2);
+    const int body = (len - head) >> 2, tail = head + 4 * body;
+    const float4* y4 = (const float4*)(yr + lo + head);
+    if (tid < head) see_value(yr[lo + tid], lo + tid, bv, bi, nan, mini);
+    for (int q = tid; q < body; q += blockDim.x) {
+      const float4 f = __ldg(y4 + q);
+      const int i = lo + head + 4 * q;
+      see_value(f.x, i, bv, bi, nan, mini);
+      see_value(f.y, i + 1, bv, bi, nan, mini);
+      see_value(f.z, i + 2, bv, bi, nan, mini);
+      see_value(f.w, i + 3, bv, bi, nan, mini);
     }
+    if (tail + tid < len)
+      see_value(yr[lo + tail + tid], lo + tail + tid, bv, bi, nan, mini);
   }
-  const float old = by_in[r];   // read by all before the barrier
   warp_best(bv, bi, mini);
   if ((threadIdx.x & 31) == 0) {
     wv[threadIdx.x >> 5] = bv;
     wi[threadIdx.x >> 5] = bi;
   }
   nan = __syncthreads_or(nan);
-  // every warp folds the warp partials: the block's best in every thread
-  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  bv = lane < nwarps ? wv[lane] : worst_value(mini);
-  bi = lane < nwarps ? wi[lane] : 0x7fffffff;
-  warp_best(bv, bi, mini);
-  bv = __shfl_sync(0xffffffffu, bv, 0);
-  bi = __shfl_sync(0xffffffffu, bi, 0);
-  const bool better = !nan && (mini ? bv < old : bv > old);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {      // warp 0 folds the warp partials
+    const int nwarps = blockDim.x >> 5;
+    bv = lane < nwarps ? wv[lane] : worst_value(mini);
+    bi = lane < nwarps ? wi[lane] : 0x7fffffff;
+    warp_best(bv, bi, mini);
+    if (lane == 0) {
+      part_v = bv;
+      part_i = bi;
+      part_nan = nan;
+    }
+  }
+  cluster.sync();              // every block's partial is in place
+  if (rank == 0 && threadIdx.x < 32) {   // one lane a rank
+    float pv = worst_value(mini);
+    int pi = 0x7fffffff;
+    bool pn = false;
+    if (lane < blocks) {
+      pv = *cluster.map_shared_rank(&part_v, lane);
+      pi = *cluster.map_shared_rank(&part_i, lane);
+      pn = *cluster.map_shared_rank(&part_nan, lane) != 0;
+    }
+    warp_best(pv, pi, mini);
+    pn = __any_sync(0xffffffffu, pn);
+    if (lane == 0) {
+      fin_v = pv;
+      fin_i = pi;
+      fin_nan = pn;
+    }
+  }
+  cluster.sync();              // no block leaves before rank 0 has read it
+  if (rank != 0) return;
+  const bool better = !fin_nan && (mini ? fin_v < old : fin_v > old);
+  const int best = fin_i;
   for (int j = threadIdx.x; j < v; j += blockDim.x)
-    bx_out[r * v + j] = better ? x[(r * n + bi) * v + j] : bx_in[r * v + j];
-  if (threadIdx.x == 0) by_out[r] = better ? bv : old;
+    bx_out[r * v + j] =
+        better ? x[(r * n + best) * v + j] : bx_in[r * v + j];
+  if (threadIdx.x == 0) by_out[r] = better ? fin_v : old;
 }
 
 bool bad_global(int replicas, int n, int v, int c) {
@@ -1465,39 +1668,56 @@ int ga_ffm_launch(const void* x, void* y, const void* lo, const void* span,
   return (int)cudaGetLastError();
 }
 
-// ga_operators: the offspring and the clocked banks of one generation.
+// ga_operators: the offspring and the clocked banks of one generation, a
+// block a tile of `tile` pairs (a power of two dividing N/2) and `chunk`
+// variables (see the note above).  The banks are read and written as
+// 8-byte words, so their pointers must be 8-byte aligned.
 int ga_operators_launch(const void* x, const void* y, const void* sel,
                         const void* cross, const void* mut, void* x_out,
                         void* sel_out, void* cross_out, void* mut_out,
                         int replicas, int n, int v, int c, int idx_bits,
                         int cut_bits, int p, int steps, int minimize,
-                        void* stream) {
+                        int tile, int chunk, void* stream) {
   if (bad_global(replicas, n, v, c) || (n & (n - 1)) || idx_bits < 1 ||
       idx_bits > 31 || (1u << idx_bits) != (unsigned)n || cut_bits < 1 ||
-      cut_bits > 31 || p < 0 || p > n || steps < 0)
+      cut_bits > 31 || p < 0 || p > n || steps < 0 || tile < 1 ||
+      (tile & (tile - 1)) || (n / 2) % tile || chunk < 1 || chunk > v ||
+      4 * ops_tile_words(tile, chunk) > (size_t)kOpsSmemLimit)
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)sel | (uintptr_t)mut | (uintptr_t)sel_out |
+       (uintptr_t)mut_out) & 7)
+    return (int)cudaErrorMisalignedAddress;
   const Operators O{(const uint32_t*)x,     (const float*)y,
                     (const uint32_t*)sel,   (const uint32_t*)cross,
                     (const uint32_t*)mut,   (uint32_t*)x_out,
                     (uint32_t*)sel_out,     (uint32_t*)cross_out,
                     (uint32_t*)mut_out};
   const Shape S{n, v, c, idx_bits, cut_bits, p, steps, minimize, -1, 0};
-  const size_t pairs = (size_t)replicas * (n / 2);
-  ga_operators<<<blocks_for(pairs, kGlobalThreads), kGlobalThreads, 0,
-                 (cudaStream_t)stream>>>(O, S, pairs);
+  const dim3 grid((unsigned)((size_t)replicas * (n / 2 / tile)),
+                  (unsigned)((v + chunk - 1) / chunk));
+  ga_operators<<<grid, kGlobalThreads, 4 * ops_tile_words(tile, chunk),
+                 (cudaStream_t)stream>>>(O, S, tile, chunk);
   return (int)cudaGetLastError();
 }
 
-// ga_best: (best_y, best_x) folded with the best of (x, y), a block a
-// replica.
+// ga_best: (best_y, best_x) folded with the best of (x, y), a cluster of
+// `blocks` blocks a replica, block k folding y[k * slice, (k + 1) * slice)
+// of its row (every block some of it).
 int ga_best_launch(const void* x, const void* y, const void* best_y_in,
                    const void* best_x_in, void* best_y_out, void* best_x_out,
-                   int replicas, int n, int v, int minimize, void* stream) {
-  if (bad_global(replicas, n, v, 1)) return (int)cudaErrorInvalidValue;
-  ga_best<<<replicas, kBestThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const float*)y, (const float*)best_y_in,
-      (const uint32_t*)best_x_in, (float*)best_y_out, (uint32_t*)best_x_out,
-      n, v, minimize);
+                   int replicas, int n, int v, int minimize, int blocks,
+                   int slice, void* stream) {
+  if (bad_global(replicas, n, v, 1) || blocks < 1 || blocks > kMaxCluster ||
+      slice < 1 || (long long)blocks * slice < n ||
+      (long long)(blocks - 1) * slice >= n)
+    return (int)cudaErrorInvalidValue;
+  Launch L(replicas * blocks, n, 0, stream, blocks);
+  L.cfg.blockDim = dim3(kBestThreads);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &L.cfg, ga_best, (const uint32_t*)x, (const float*)y,
+      (const float*)best_y_in, (const uint32_t*)best_x_in,
+      (float*)best_y_out, (uint32_t*)best_x_out, n, v, slice, minimize);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

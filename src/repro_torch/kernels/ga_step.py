@@ -341,9 +341,9 @@ def _declare(lib) -> None:
     lib.ga_step_error_string.restype = ctypes.c_char_p
     lib.ga_ffm_launch.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.ga_ffm_launch.restype = i
-    lib.ga_operators_launch.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.ga_operators_launch.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.ga_operators_launch.restype = i
-    lib.ga_best_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.ga_best_launch.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.ga_best_launch.restype = i
     lib.ga_global_kernel_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 2
     lib.ga_global_kernel_attrs.restype = i
@@ -470,6 +470,60 @@ def ga_ffm_kernel(x, *, cfg: GAConfig, program: F.FitnessProgram
     return y
 
 
+# K1's global form cuts its work into blocks as the CUDA launchers check:
+# ga_operators a tile of pairs by a chunk of variables within a shared-memory
+# budget, ga_best a replica into a cluster of slices
+OPS_TILE_PAIRS = 256           # most pairs a ga_operators tile holds
+OPS_CHUNK = 64                 # most variables a ga_operators chunk holds
+OPS_SMEM_LIMIT = 27648         # bytes of a tile, 8 an SM (kOpsSmemLimit)
+OPS_ITEMS = 512                # (pair, variable) items a tile is cut down to
+OPS_GRID = 512                 # blocks a launch should have to fill the card
+BEST_SLICE = 4096              # values a ga_best block folds before B grows
+
+
+def operators_tile_bytes(tile: int, chunk: int) -> int:
+    """Shared memory of a ga_operators tile (`ops_tile_words`): 2 x tile
+    rows of `chunk` words at the odd stride chunk | 1, and 2 x tile
+    winners."""
+    return 4 * (2 * tile * (chunk | 1) + 2 * tile)
+
+
+def operators_tiling(n: int, v: int, replicas: int) -> Tuple[int, int]:
+    """(tile, chunk) of ga_operators over `replicas` replicas of (N, V): a
+    chunk of at most `OPS_CHUNK` variables (the last one ragged), and a
+    tile of pairs, a power of two dividing N/2 (N is one): the most, up to
+    `OPS_TILE_PAIRS`, that fit `OPS_SMEM_LIMIT`, then halved while the
+    grid has fewer than `OPS_GRID` blocks and a tile more than `OPS_ITEMS`
+    (pair, variable) items: a few large tiles leave SMs idle, many small
+    ones each pay a block's fixed cost (the trade measured on the card,
+    `PERF.md` §5)."""
+    chunk = min(v, OPS_CHUNK)
+    tile = min(OPS_TILE_PAIRS, n // 2)
+    while tile > 1 and operators_tile_bytes(tile, chunk) > OPS_SMEM_LIMIT:
+        tile //= 2
+    chunks = -(-v // chunk)
+    while (tile > 1 and tile * chunk > OPS_ITEMS
+           and replicas * (n // 2 // tile) * chunks < OPS_GRID):
+        tile //= 2
+    return tile, chunk
+
+
+def best_split(n: int) -> Tuple[int, int]:
+    """(blocks, slice) of ga_best at N: a cluster of ceil(N / BEST_SLICE)
+    blocks, 1 to MAX_CLUSTER, block k folding values [k * slice, (k + 1) *
+    slice) of its replica's row; slice is a multiple of 4 (16-byte loads)
+    and every block has some."""
+    blocks = min(MAX_CLUSTER, max(1, -(-n // BEST_SLICE)))
+    slice_ = -(-n // blocks)
+    return blocks, slice_ + (-slice_ % 4)
+
+
+def _aligned8(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where its data does not start on 8 bytes (the kernel
+    reads the banks as 8-byte words)."""
+    return t if t.data_ptr() % 8 == 0 else t.clone()
+
+
 def ga_best_plain(x, y, best_y, best_x, *, minimize: bool):
     """`ga_best`'s function in plain PyTorch: `core.ga.gen_best`, then
     `fold_best`, as the reference scan folds a generation."""
@@ -482,8 +536,8 @@ def ga_best_kernel(x, y, best_y, best_x, *, minimize: bool
     """The running best (best_y f32[R], best_x int32[R, V]) folded with the
     best of x int32[R, N, V] scored by y f32[R, N]: the first occurrence of
     the best value, kept on strict improvement, nothing taken where y holds
-    a NaN (`ga_best` in the CUDA source, a block a replica); a CPU tensor
-    takes `ga_best_plain`."""
+    a NaN (`ga_best` in the CUDA source, a cluster of `best_split(N)`
+    blocks a replica); a CPU tensor takes `ga_best_plain`."""
     _check_device("ga_best_kernel", x)
     if x.dim() != 3 or x.dtype != torch.int32:
         raise ValueError(f"x must be int32 [R, N, V], got {x.dtype} "
@@ -497,13 +551,14 @@ def ga_best_kernel(x, y, best_y, best_x, *, minimize: bool
     x, y, best_y, best_x = (t.contiguous() for t in (x, y, best_y, best_x))
     by = torch.empty_like(best_y)
     bx = torch.empty_like(best_x)
+    blocks, slice_ = best_split(n)
     lib = kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ga_best_launch(x.data_ptr(), y.data_ptr(),
                                  best_y.data_ptr(), best_x.data_ptr(),
                                  by.data_ptr(), bx.data_ptr(), r, n, v,
-                                 int(minimize), stream)
+                                 int(minimize), blocks, slice_, stream)
     _check_launch(err, "ga_best")
     LAUNCHES["ga_best"] += 1
     return by, bx
@@ -520,10 +575,10 @@ def ga_operators_plain(x, y, sel, cross, mut, *, cfg: GAConfig):
 def ga_operators_kernel(x, y, sel, cross, mut, *, cfg: GAConfig
                         ) -> Tuple[torch.Tensor, ...]:
     """(x', sel', cross', mut'): the tournaments, crossover and mutation of
-    one generation over a stack [R, ...] scored by y f32[R, N], a thread a
-    pair (`ga_operators` in the CUDA source); a CPU tensor takes
-    `ga_operators_plain`.  N must be a power of two (the tournament
-    indices are the top idx_bits of a draw)."""
+    one generation over a stack [R, ...] scored by y f32[R, N], a block a
+    tile of `operators_tiling(N, V, R)` (`ga_operators` in the CUDA
+    source); a CPU tensor takes `ga_operators_plain`.  N must be a power
+    of two (the tournament indices are the top idx_bits of a draw)."""
     _check_device("ga_operators_kernel", x)
     if cfg.n & (cfg.n - 1):
         raise ValueError(f"N={cfg.n}: ga_operators draws tournament indices "
@@ -534,8 +589,10 @@ def ga_operators_kernel(x, y, sel, cross, mut, *, cfg: GAConfig
     if x.device.type == "cpu":
         return ga_operators_plain(x, y, sel, cross, mut, cfg=cfg)
     x, y, sel, cross, mut = (t.contiguous() for t in (x, y, sel, cross, mut))
+    sel, mut = _aligned8(sel), _aligned8(mut)
     r, n, v = x.shape
     outs = [torch.empty_like(t) for t in (x, sel, cross, mut)]
+    tile, chunk = operators_tiling(n, v, r)
     lib = kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -543,7 +600,7 @@ def ga_operators_kernel(x, y, sel, cross, mut, *, cfg: GAConfig
             x.data_ptr(), y.data_ptr(), sel.data_ptr(), cross.data_ptr(),
             mut.data_ptr(), *(t.data_ptr() for t in outs), r, n, v, cfg.c,
             cfg.idx_bits, cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
-            int(cfg.minimize), stream)
+            int(cfg.minimize), tile, chunk, stream)
     _check_launch(err, "ga_operators")
     LAUNCHES["ga_generation:global"] += 1
     return tuple(outs)

@@ -163,6 +163,95 @@ def test_global_form_kernels_match_plain(cuda_device, minimize):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+class _WithP:
+    """A GAConfig seen with another P (a GAConfig's P is at least 1)."""
+
+    def __init__(self, cfg, p):
+        self._cfg, self.p = cfg, p
+
+    def __getattr__(self, name):
+        return getattr(self._cfg, name)
+
+
+# edge shapes of chip_smoke.py phase 17 (d): (N, V, R, P) -- one and two
+# pairs, odd V, V past one chunk (100), P = 0 and P = N, N/2 + 1
+EDGE_SHAPES = [(2, 1, 1, 0), (4, 3, 3, 3), (8192, 100, 3, 4097),
+               (65536, 3, 1, 65536), (66, 64, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,replicas,p", EDGE_SHAPES)
+def test_global_form_kernels_match_plain_at_edges(cuda_device, n, v,
+                                                  replicas, p):
+    """ga_operators (at a power-of-two N) and ga_best equal their plain
+    twins at the edge shapes: y of small integers (ties everywhere), a
+    NaN in the last block's slice, the best tied across a cluster's
+    blocks, minimize and maximize."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + v)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             device=cuda_device,
+                             dtype=torch.int64).to(torch.int32)
+
+    x = torch.randint(0, 1 << 16, (replicas, n, v), generator=g,
+                      device=cuda_device, dtype=torch.int32)
+    y = torch.randint(-50, 50, (replicas, n), generator=g,
+                      device=cuda_device).to(torch.float32)
+    banks = (words(replicas, 2, n), words(replicas, v, n // 2),
+             words(replicas, v, n))
+    blocks, slice_ = K.best_split(n)
+    for minimize in (True, False):
+        if n & (n - 1) == 0:
+            cfg = _WithP(TG.GAConfig(n=n, c=16, v=v, seed=1,
+                                     minimize=minimize, mode="arith",
+                                     sel_lane="gather"), p)
+            got = K.ga_operators_kernel(x, y, *banks, cfg=cfg)
+            want = K.ga_operators_plain(x, y, *banks, cfg=cfg)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        by = torch.full((replicas,), np.inf if minimize else -np.inf,
+                        device=cuda_device)
+        bx = torch.zeros((replicas, v), dtype=torch.int32,
+                         device=cuda_device)
+        tie = y.clone()
+        top = tie.min() - 1 if minimize else tie.max() + 1
+        tie[:, n - 1] = tie[:, (blocks - 1) * slice_ // 2] = top
+        nan = y.clone()
+        nan[:, n - 1] = np.nan
+        for yy in (y, tie, nan):
+            got = K.ga_best_kernel(x, yy, by, bx, minimize=minimize)
+            want = K.ga_best_plain(x, yy, by, bx, minimize=minimize)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(K.ga_best_kernel(x, nan, by, bx,
+                                            minimize=minimize)[1], bx)
+
+
+@pytest.mark.cuda
+def test_ga_operators_takes_banks_off_8_byte_alignment(cuda_device):
+    """ga_operators reads the selection and mutation banks as 8-byte words:
+    contiguous banks whose data starts 4 bytes off (views one word into a
+    buffer) are copied, not refused, and the result equals the plain
+    twin's."""
+    n, v, replicas = 64, 3, 2
+    cfg = TG.GAConfig(n=n, c=16, v=v, seed=1, mode="arith",
+                      sel_lane="gather", mutation_rate=0.1)
+    st = _stack(cfg, replicas, cuda_device)
+
+    def off_by_a_word(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 8 == 4
+        return view
+
+    y = torch.randn((replicas, n), device=cuda_device)
+    banks = (off_by_a_word(st.sel_lfsr), st.cross_lfsr,
+             off_by_a_word(st.mut_lfsr))
+    got = K.ga_operators_kernel(st.x, y, *banks, cfg=cfg)
+    want = K.ga_operators_plain(st.x, y, *banks, cfg=cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
 def test_fused_blackbox_matches_reference_on_card(cuda_device):
     """A blackbox that closes over card tensors runs `fused` through K1's
