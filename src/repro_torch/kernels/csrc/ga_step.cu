@@ -333,24 +333,49 @@ struct Decoder {
   }
 };
 
-// Variable j of individual i of one replica's [N, V] population in global
-// memory, the layout the wrappers hand over (the global form of K1).
-struct RowDecoder {
+// Variable j of individual i of a row-major tile in shared memory, row
+// stride `stride` (the global form's `ga_ffm`).
+struct TileDecoder {
   const uint32_t* x;
-  int v;
+  int stride;
   uint32_t mask;
   const float* lo;
   const float* span;
   __device__ __forceinline__ float operator()(int i, int j) const {
-    return lo[j] + (float)(x[(size_t)i * v + j] & mask) * span[j];
+    return lo[j] + (float)(x[i * stride + j] & mask) * span[j];
   }
 };
+
+// The per-variable terms of the summed problems and ackley's finish, one
+// expression each, shared by `ffm` and `ga_ffm`'s spread form: built with
+// -fmad=false, a term rounds the same in whichever thread computes it.
+__device__ __forceinline__ float sphere_term(float b) { return b * b; }
+
+__device__ __forceinline__ float rastrigin_term(float a) {
+  return a * a - 10.0f * cosf(6.283185307179586f * a) + 10.0f;
+}
+
+__device__ __forceinline__ float rosenbrock_term(float a, float b) {
+  float dd = b - a * a;
+  float e = 1.0f - a;
+  return 100.0f * (dd * dd) + e * e;
+}
+
+__device__ __forceinline__ float ackley_cos(float a) {
+  return cosf(6.283185307179586f * a);
+}
+
+__device__ __forceinline__ float ackley_of(float s1, float s2, float fv) {
+  float m1 = s1 / fv, m2 = s2 / fv;
+  return -20.0f * expf(-0.2f * sqrtf(m1)) - expf(m2) + 20.0f +
+         2.718281828459045f;
+}
 
 // The FFM of the K individuals i[0..K) into y[0..K): each follows the plain
 // version's operation order, and the K evaluations run interleaved, step by
 // step, so their dependency chains overlap (K = 2: a thread's pair).  `D`
-// reads variable j of individual i: `Decoder` in shared memory, `RowDecoder`
-// in the global memory of the global form.
+// reads variable j of individual i: `Decoder` in the one-block kernels'
+// shared memory, `TileDecoder` in the rows form of `ga_ffm`.
 template <int K, class D = Decoder>
 __device__ __forceinline__ void ffm(int problem, const D& d,
                                     const int (&i)[K], int v, float (&y)[K]) {
@@ -371,28 +396,23 @@ __device__ __forceinline__ void ffm(int problem, const D& d,
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         float a = d(i[k], 0), b = d(i[k], 1);
-        y[k] = sqrtf(fmaxf(a * a + b * b, 0.0f));
+        // clamp_min(q, 0) as PyTorch's: a NaN stays NaN (fmaxf gives 0)
+        float q = a * a + b * b;
+        y[k] = sqrtf(q < 0.0f ? 0.0f : q);
       }
       return;
     case kSphere:
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        float a = d(i[k], 0);
-        y[k] = a * a;
-      }
+      for (int k = 0; k < K; ++k) y[k] = sphere_term(d(i[k], 0));
       for (int j = 1; j < v; ++j)
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          float b = d(i[k], j);
-          y[k] = y[k] + b * b;
-        }
+        for (int k = 0; k < K; ++k) y[k] = y[k] + sphere_term(d(i[k], j));
       return;
     case kRastrigin:
       for (int j = 0; j < v; ++j)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          float a = d(i[k], j);
-          float t = a * a - 10.0f * cosf(6.283185307179586f * a) + 10.0f;
+          float t = rastrigin_term(d(i[k], j));
           y[k] = j ? y[k] + t : t;
         }
       return;
@@ -407,9 +427,7 @@ __device__ __forceinline__ void ffm(int problem, const D& d,
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           float b = d(i[k], j + 1);
-          float dd = b - a[k] * a[k];
-          float e = 1.0f - a[k];
-          float t = 100.0f * (dd * dd) + e * e;
+          float t = rosenbrock_term(a[k], b);
           y[k] = j ? y[k] + t : t;
           a[k] = b;
         }
@@ -422,17 +440,13 @@ __device__ __forceinline__ void ffm(int problem, const D& d,
         for (int k = 0; k < K; ++k) {
           float a = d(i[k], j);
           float q = a * a;
-          float cs = cosf(6.283185307179586f * a);
+          float cs = ackley_cos(a);
           s1[k] = j ? s1[k] + q : q;
           s2[k] = j ? s2[k] + cs : cs;
         }
       const float fv = (float)v;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        float m1 = s1[k] / fv, m2 = s2[k] / fv;
-        y[k] = -20.0f * expf(-0.2f * sqrtf(m1)) - expf(m2) + 20.0f +
-               2.718281828459045f;
-      }
+      for (int k = 0; k < K; ++k) y[k] = ackley_of(s1[k], s2[k], fv);
       return;
     }
   }
@@ -1001,10 +1015,11 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
 // each replaces a part of src/repro/kernels/ga_step.py:600
 // `ga_generation_kernel` in this form:
 //
-//   ga_ffm        y [R, N] of x: the built-in problems' `ffm<1>` a thread
-//                 an individual (for any other fitness the wrapper calls
-//                 its PyTorch stage instead: CUDA cannot take a Python
-//                 function, and the stage is what the reference runs);
+//   ga_ffm        y [R, N] of x: the built-in problems' FFM, a block a
+//                 tile of rows in shared memory (for any other fitness the
+//                 wrapper calls its PyTorch stage instead: CUDA cannot take
+//                 a Python function, and the stage is what the reference
+//                 runs);
 //   ga_best       the running best (best_y [R], best_x [R, V]) folded with
 //                 x's best, with `takes`' first-occurrence rule and strict
 //                 improvement; a NaN anywhere in y leaves it as it was (the
@@ -1022,6 +1037,45 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
 // generation.  Each is bound by the bytes it moves, at a few integer
 // operations a word, far below the card's issue rate.  Built with the
 // flags of the whole file, so the FFM rounds as the plain version does.
+//
+// ga_ffm reads x (4RNV bytes) and writes y (4RN): 12.6 MB at rastrigin:2,
+// N = 65536 x 16, 3.8 us at 3.35 TB/s; its work is the decode and the
+// problem's float32 expression, with a precise cosf (about 25 instructions,
+// no MUFU) a variable for rastrigin and ackley.  A thread a row walking it
+// in global memory put a warp's lanes V words apart (at V = 64 a load
+// touched 32 sectors for 128 useful bytes) and left the card idle where
+// R*N is small (rastrigin:32, N = 1024 x 16: 16384 threads, 32 cosf each
+// one after another).  The plain version sums the V terms from left to
+// right, the first not added to 0 (float32 addition is not associative),
+// so no sum over V may be a tree: only the terms may run in parallel.  A
+// block takes a tile of T consecutive rows of x seen as one [R*N, V]
+// matrix (every replica shares lo and span; the last tile may be ragged);
+// the wrapper's `ffm_spreads` and `ffm_tiling` pick the form, T and the
+// chunk Vc, and the launcher checks them:
+//   1. the block copies the words [j0, j0 + Vc) of its T rows into shared
+//      memory, consecutive threads on consecutive words of a row (when Vc
+//      = V one contiguous range, 16 bytes a thread where aligned, two loads
+//      of a thread in flight before its stores), at the odd row stride of
+//      `ffm_stride`, so lanes walking down a column hit distinct banks, and
+//      the chunk's lo and span beside them;
+//   2. rows form (V < 4, F1-F3 always, and wherever 256-row tiles alone
+//      fill the grid): a thread takes K = T / 256 rows, 256 apart, and runs
+//      `ffm<K>` over them, interleaved, so their cosf chains overlap;
+//   3. spread form (sphere to ackley, where R*N is small): for rastrigin
+//      and ackley a thread a (row, variable) item, rows fastest, decodes its
+//      word and writes its term into a second tile (ackley: a*a there, its
+//      cos over the word) and a barrier follows; then a thread a row folds
+//      the chunk's terms from left to right into sums it carries in
+//      registers to the next chunk, the first term of the row not added to
+//      0, and ackley finishes with `ackley_of`.  Sphere's b*b and
+//      rosenbrock's seven operations cost the folding thread less than a
+//      pass that spreads them (measured), so it computes them itself;
+//      rosenbrock's term j reads word j + 1, so a chunk short of V loads one
+//      halo word past its end, and at V = 1 the sum is 0.
+// Every term is `ffm`'s own expression (the shared `*_term` functions), so
+// y is the plain version's bit for bit, NaN and inf included.  The spread
+// form is built once a problem, so sphere and rosenbrock (no cosf) fit 32
+// registers.
 //
 // ga_operators moves N*V + 2N + V*N/2 + V*N words a replica each way and
 // reads y: 62.9 MB at rastrigin:2, N = 65536 x 16, 18.8 us at 3.35 TB/s.
@@ -1068,7 +1122,9 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
 //      bx_in with all its threads.
 // ---------------------------------------------------------------------------
 
-constexpr int kGlobalThreads = 256;  // ga_ffm: an item a thread; ga_operators
+constexpr int kGlobalThreads = 256;  // ga_ffm and ga_operators
+constexpr int kFfmSmemLimit = 49152; // bytes of a ga_ffm block (no opt-in)
+constexpr int kFfmLoads = 2;         // 16-byte loads a thread has in flight
 constexpr int kBestThreads = 512;    // ga_best: a block a slice of a replica
 constexpr int kOpsBlocks = 8;        // ga_operators blocks an SM holds
 constexpr int kOpsSmemLimit = 27648; // bytes of a tile: 8 x (27 + 1) KB an SM
@@ -1078,33 +1134,6 @@ constexpr int kOpsSmemLimit = 27648; // bytes of a tile: 8 x (27 + 1) KB an SM
 __host__ __device__ inline size_t ops_tile_words(int tile, int chunk) {
   return 2 * (size_t)tile * (chunk | 1) + 2 * (size_t)tile;
 }
-
-// y[r, i]: the FFM of individual i of replica r, one thread each.
-__global__ void __launch_bounds__(kGlobalThreads)
-ga_ffm(const uint32_t* x, float* y, const float* lo, const float* span,
-       size_t items, int n, int v, int c, int problem) {
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= items) return;
-  const size_t r = t / (size_t)n;
-  const int i[1] = {(int)(t - r * n)};
-  float out[1];
-  ffm<1>(problem, RowDecoder{x + r * n * v, v, (1u << c) - 1u, lo, span}, i,
-         v, out);
-  y[t] = out[0];
-}
-
-// The banks of a stack in global memory, in and out.
-struct Operators {
-  const uint32_t* x;      // [R, N, V] the population
-  const float* y;         // [R, N]    its fitness
-  const uint32_t* sel;    // [R, 2, N]
-  const uint32_t* cross;  // [R, V, N/2]
-  const uint32_t* mut;    // [R, V, N]
-  uint32_t* x_out;        // the offspring
-  uint32_t* sel_out;      // the banks, each word clocked by S.steps
-  uint32_t* cross_out;
-  uint32_t* mut_out;
-};
 
 // A walk over the words w = k * width + j of a row-major range, `step`
 // words at a time, without a division a step.
@@ -1127,6 +1156,243 @@ struct RowWalk {
       ++k;
     }
   }
+};
+
+// Row stride of a ga_ffm tile of `chunk` variables: odd, and in the spread
+// form one word longer than a chunk for rosenbrock's halo.
+__host__ __device__ inline int ffm_stride(int chunk, bool spread) {
+  return spread ? (chunk + 1) | 1 : chunk | 1;
+}
+
+// Bytes of a ga_ffm block's shared memory: `tile` rows of words at the
+// stride above, the chunk's lo and span, and in the spread form a tile of
+// terms.
+__host__ __device__ inline size_t ffm_tile_bytes(int tile, int chunk,
+                                                 bool spread) {
+  const size_t words = (size_t)tile * ffm_stride(chunk, spread);
+  return 4 * ((spread ? 2 : 1) * words + 2 * (size_t)(chunk + 1));
+}
+
+// Step 1 of ga_ffm: the words [j0, j0 + width) of the `here` rows of x at
+// `src` = x + row0 * v + j0 into tile row k at k * stride (one contiguous
+// range when width = v, read 16 bytes a thread where aligned, else a
+// contiguous chunk a row; every load of a thread in flight before its
+// first store), and lo, span [j0, j0 + width) beside them.
+__device__ __forceinline__ void ffm_load(const uint32_t* src, int here,
+                                         int v, int width, uint32_t* tile,
+                                         int stride, const float* lo,
+                                         const float* span, float* tlo,
+                                         float* tspan) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int words = here * width;
+  for (int j = tid; j < width; j += nt) {
+    tlo[j] = __ldg(lo + j);
+    tspan[j] = __ldg(span + j);
+  }
+  if (width == v) {
+    const int head =
+        min(words, (int)((16 - ((uintptr_t)src & 15)) & 15) >> 2);
+    const int body = (words - head) >> 2;
+    if (tid < head) {
+      RowWalk at(tid, nt, v);
+      tile[at.k * stride + at.j] = __ldg(src + tid);
+    }
+    const uint4* src4 = (const uint4*)(src + head);
+    RowWalk at(head + 4 * tid, 4 * nt, v);
+    for (int q0 = tid; q0 < body; q0 += kFfmLoads * nt) {
+      uint4 u[kFfmLoads];
+#pragma unroll
+      for (int m = 0; m < kFfmLoads; ++m)
+        if (q0 + m * nt < body) u[m] = __ldg(src4 + q0 + m * nt);
+#pragma unroll
+      for (int m = 0; m < kFfmLoads; ++m, at.next()) {
+        if (q0 + m * nt >= body) break;
+        RowWalk e = at;
+        tile[e.k * stride + e.j] = u[m].x;
+        e.next_word();
+        tile[e.k * stride + e.j] = u[m].y;
+        e.next_word();
+        tile[e.k * stride + e.j] = u[m].z;
+        e.next_word();
+        tile[e.k * stride + e.j] = u[m].w;
+      }
+    }
+    const int w = head + 4 * body + tid;
+    if (w < words) {
+      RowWalk t(w, nt, v);
+      tile[t.k * stride + t.j] = __ldg(src + w);
+    }
+  } else {
+    RowWalk at(tid, nt, width);
+    for (int w0 = tid; w0 < words; w0 += 4 * kFfmLoads * nt) {
+      uint32_t u[4 * kFfmLoads];
+      RowWalk e = at;
+#pragma unroll
+      for (int m = 0; m < 4 * kFfmLoads; ++m, e.next())
+        if (w0 + m * nt < words) u[m] = __ldg(src + (size_t)e.k * v + e.j);
+#pragma unroll
+      for (int m = 0; m < 4 * kFfmLoads; ++m, at.next())
+        if (w0 + m * nt < words) tile[at.k * stride + at.j] = u[m];
+    }
+  }
+}
+
+// Step 3 of ga_ffm's spread form for problem P: the terms of a chunk
+// (`terms` a row), item q = (row q mod T, variable q / T), into t (ackley's
+// cos over its word in w).
+template <int P>
+__device__ __forceinline__ void ffm_terms(uint32_t* w, float* t, int tile,
+                                          int here, int stride, int terms,
+                                          uint32_t mask, const float* lo,
+                                          const float* span) {
+  const int lg = __ffs(tile) - 1;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < (terms << lg); q += blockDim.x) {
+    const int k = q & (tile - 1), jj = q >> lg;
+    if (k >= here) continue;
+    const int at = k * stride + jj;
+    const float a = lo[jj] + (float)(w[at] & mask) * span[jj];
+    if constexpr (P == kSphere) {
+      t[at] = sphere_term(a);
+    } else if constexpr (P == kRastrigin) {
+      t[at] = rastrigin_term(a);
+    } else if constexpr (P == kRosenbrock) {
+      const float b = lo[jj + 1] + (float)(w[at + 1] & mask) * span[jj + 1];
+      t[at] = rosenbrock_term(a, b);
+    } else {
+      t[at] = a * a;
+      w[at] = __float_as_uint(ackley_cos(a));
+    }
+  }
+}
+
+// y[row]: the FFM of each row of x [rows, v] (rows = R * N), a block the
+// tile of `tile` rows from blockIdx.x * tile, in the steps of the note
+// above.  K > 0: the rows form (tile = 256 K, chunk = v, the problem at run
+// time); K = 0: the spread form for problem P (tile a power of two <= 256,
+// chunks of `chunk` variables).  The forms without cosf hold 8 blocks an SM.
+template <int K, int P>
+__global__ void __launch_bounds__(kGlobalThreads,
+                                  K == 0 && (P == kSphere ||
+                                             P == kRosenbrock) ? 8 : 4)
+ga_ffm(const uint32_t* x, float* y, const float* lo, const float* span,
+       size_t rows, int v, int c, int problem, int tile, int chunk) {
+  extern __shared__ uint32_t smem[];
+  constexpr bool spread = K == 0;
+  const int stride = ffm_stride(chunk, spread);
+  uint32_t* w = smem;                                   // the words
+  float* t = (float*)(smem + (size_t)tile * stride);    // the terms
+  float* tlo = (float*)(smem + (size_t)(spread ? 2 : 1) * tile * stride);
+  float* tspan = tlo + chunk + 1;
+  const size_t row0 = (size_t)blockIdx.x * tile, left = rows - row0;
+  const int here = left < (size_t)tile ? (int)left : tile;
+  const uint32_t mask = (1u << c) - 1u;
+  const int tid = threadIdx.x;
+  const uint32_t* src = x + row0 * v;
+  if constexpr (K > 0) {
+    ffm_load(src, here, v, v, w, stride, lo, span, tlo, tspan);
+    __syncthreads();
+    int i[K];
+    float out[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) i[k] = tid + k * kGlobalThreads;
+    ffm<K>(problem, TileDecoder{w, stride, mask, tlo, tspan}, i, v, out);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (i[k] < here) y[row0 + i[k]] = out[k];
+  } else {
+    // rastrigin's and ackley's cosf terms are spread over the block; sphere's
+    // and rosenbrock's cost the folding thread less than a pass
+    constexpr bool cos_terms = P == kRastrigin || P == kAckley;
+    float s1 = 0.0f, s2 = 0.0f;   // the carried sums (s2: ackley's cos)
+    for (int j0 = 0; j0 < v; j0 += chunk) {
+      const int vc = min(chunk, v - j0);
+      const int width = P == kRosenbrock ? min(vc + 1, v - j0) : vc;
+      const int terms = P == kRosenbrock ? width - 1 : vc;
+      if (j0 > 0) __syncthreads();   // the last chunk's fold is done
+      ffm_load(src + j0, here, v, width, w, stride, lo + j0, span + j0, tlo,
+               tspan);
+      __syncthreads();
+      if constexpr (cos_terms) {
+        ffm_terms<P>(w, t, tile, here, stride, terms, mask, tlo, tspan);
+        __syncthreads();
+      }
+      if (tid < here && terms > 0) {   // the fold, a thread a row
+        const uint32_t* wk = w + tid * stride;
+        const float* tk = t + tid * stride;
+        auto word = [&](int jj) {
+          return tlo[jj] + (float)(wk[jj] & mask) * tspan[jj];
+        };
+        int jj = 0;
+        if constexpr (P == kSphere) {
+          if (j0 == 0) s1 = sphere_term(word(jj++));   // the first term is
+#pragma unroll 8                                       // the sum, not 0 + it
+          for (; jj < terms; ++jj) s1 = s1 + sphere_term(word(jj));
+        } else if constexpr (P == kRosenbrock) {
+          float a = word(0);
+          if (j0 == 0) {
+            const float b = word(1);
+            s1 = rosenbrock_term(a, b);
+            a = b;
+            jj = 1;
+          }
+#pragma unroll 4
+          for (; jj < terms; ++jj) {
+            const float b = word(jj + 1);
+            s1 = s1 + rosenbrock_term(a, b);
+            a = b;
+          }
+        } else {
+          if (j0 == 0) {
+            s1 = tk[0];
+            if constexpr (P == kAckley) s2 = __uint_as_float(wk[0]);
+            jj = 1;
+          }
+          if constexpr (P == kAckley) {
+#pragma unroll 4
+            for (; jj < terms; ++jj) {
+              s1 = s1 + tk[jj];
+              s2 = s2 + __uint_as_float(wk[jj]);   // its cos terms
+            }
+          } else {
+#pragma unroll 8
+            for (; jj < terms; ++jj) s1 = s1 + tk[jj];
+          }
+        }
+      }
+    }
+    if (tid < here) {
+      if constexpr (P == kAckley)
+        y[row0 + tid] = ackley_of(s1, s2, (float)v);
+      else
+        y[row0 + tid] = s1;
+    }
+  }
+}
+
+// Launch ga_ffm<K, P>, a block a tile of rows.
+template <int K, int P>
+cudaError_t ffm_run(const uint32_t* x, float* y, const float* lo,
+                    const float* span, size_t rows, int v, int c,
+                    int problem, int tile, int chunk, size_t smem,
+                    cudaStream_t s) {
+  const unsigned blocks = (unsigned)((rows + tile - 1) / tile);
+  ga_ffm<K, P><<<blocks, kGlobalThreads, smem, s>>>(x, y, lo, span, rows, v,
+                                                    c, problem, tile, chunk);
+  return cudaGetLastError();
+}
+
+// The banks of a stack in global memory, in and out.
+struct Operators {
+  const uint32_t* x;      // [R, N, V] the population
+  const float* y;         // [R, N]    its fitness
+  const uint32_t* sel;    // [R, 2, N]
+  const uint32_t* cross;  // [R, V, N/2]
+  const uint32_t* mut;    // [R, V, N]
+  uint32_t* x_out;        // the offspring
+  uint32_t* sel_out;      // the banks, each word clocked by S.steps
+  uint32_t* cross_out;
+  uint32_t* mut_out;
 };
 
 // SM, CM and MM of one generation.  Block (b, chunk) of the grid
@@ -1654,18 +1920,56 @@ int ga_streamed_capacity(int n, int v, int p, int steps, int* out) {
 
 // The global form of K1, one generation's three kernels (see above); each
 // returns the cudaError_t of its launch.  ga_ffm: y [R, N] of x [R, N, V]
-// for built-in problem `problem`.
+// for built-in problem `problem`, tiles of `tile` rows: with `spread` the
+// spread form (sphere to ackley; tile a power of two <= 256, chunks of
+// `chunk` variables), else the rows form (tile 256, 512 or 1024, chunk =
+// v); the block's shared memory within kFfmSmemLimit.
 int ga_ffm_launch(const void* x, void* y, const void* lo, const void* span,
-                  int replicas, int n, int v, int c, int problem,
-                  void* stream) {
-  if (bad_global(replicas, n, v, c) || problem < kF1 || problem > kAckley)
+                  int replicas, int n, int v, int c, int problem, int tile,
+                  int chunk, int spread, void* stream) {
+  const size_t smem = ffm_tile_bytes(tile, chunk, spread != 0);
+  if (bad_global(replicas, n, v, c) || problem < kF1 || problem > kAckley ||
+      tile < 1 || (tile & (tile - 1)) || chunk < 1 || chunk > v ||
+      smem > (size_t)kFfmSmemLimit ||
+      (spread && (problem < kSphere || tile > kGlobalThreads)) ||
+      (!spread && (chunk != v || tile < kGlobalThreads ||
+                   tile > 4 * kGlobalThreads)))
     return (int)cudaErrorInvalidValue;
-  const size_t items = (size_t)replicas * n;
-  ga_ffm<<<blocks_for(items, kGlobalThreads), kGlobalThreads, 0,
-           (cudaStream_t)stream>>>((const uint32_t*)x, (float*)y,
-                                   (const float*)lo, (const float*)span,
-                                   items, n, v, c, problem);
-  return (int)cudaGetLastError();
+  const size_t rows = (size_t)replicas * n;
+  const uint32_t* xw = (const uint32_t*)x;
+  const float *l = (const float*)lo, *sp = (const float*)span;
+  float* out = (float*)y;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (spread) {
+    switch (problem) {
+      case kSphere:
+        e = ffm_run<0, kSphere>(xw, out, l, sp, rows, v, c, problem, tile,
+                                chunk, smem, s);
+        break;
+      case kRastrigin:
+        e = ffm_run<0, kRastrigin>(xw, out, l, sp, rows, v, c, problem,
+                                   tile, chunk, smem, s);
+        break;
+      case kRosenbrock:
+        e = ffm_run<0, kRosenbrock>(xw, out, l, sp, rows, v, c, problem,
+                                    tile, chunk, smem, s);
+        break;
+      default:
+        e = ffm_run<0, kAckley>(xw, out, l, sp, rows, v, c, problem, tile,
+                                chunk, smem, s);
+    }
+  } else if (tile == kGlobalThreads) {
+    e = ffm_run<1, 0>(xw, out, l, sp, rows, v, c, problem, tile, chunk,
+                      smem, s);
+  } else if (tile == 2 * kGlobalThreads) {
+    e = ffm_run<2, 0>(xw, out, l, sp, rows, v, c, problem, tile, chunk,
+                      smem, s);
+  } else {
+    e = ffm_run<4, 0>(xw, out, l, sp, rows, v, c, problem, tile, chunk,
+                      smem, s);
+  }
+  return (int)e;
 }
 
 // ga_operators: the offspring and the clocked banks of one generation, a
@@ -1722,11 +2026,19 @@ int ga_best_launch(const void* x, const void* y, const void* best_y_in,
 }
 
 // Registers and local (spill and stack) bytes a thread of the global
-// form's kernel `which` (0: ga_ffm, 1: ga_operators, 2: ga_best).
+// form's kernel `which`: 0 ga_ffm's spread form for rastrigin, 1
+// ga_operators, 2 ga_best, 3, 4, 5 ga_ffm's rows form at K = 1, 2, 4, 6,
+// 7, 8 its spread form for sphere, rosenbrock, ackley.
 int ga_global_kernel_attrs(int which, int* regs, int* local_bytes) {
-  const void* kernel = which == 0   ? (const void*)ga_ffm
+  const void* kernel = which == 0   ? (const void*)ga_ffm<0, kRastrigin>
                        : which == 1 ? (const void*)ga_operators
                        : which == 2 ? (const void*)ga_best
+                       : which == 3 ? (const void*)ga_ffm<1, 0>
+                       : which == 4 ? (const void*)ga_ffm<2, 0>
+                       : which == 5 ? (const void*)ga_ffm<4, 0>
+                       : which == 6 ? (const void*)ga_ffm<0, kSphere>
+                       : which == 7 ? (const void*)ga_ffm<0, kRosenbrock>
+                       : which == 8 ? (const void*)ga_ffm<0, kAckley>
                                     : nullptr;
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;

@@ -339,7 +339,7 @@ def _declare(lib) -> None:
         fn.restype = i
     lib.ga_step_error_string.argtypes = [i]
     lib.ga_step_error_string.restype = ctypes.c_char_p
-    lib.ga_ffm_launch.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.ga_ffm_launch.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.ga_ffm_launch.restype = i
     lib.ga_operators_launch.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.ga_operators_launch.restype = i
@@ -444,8 +444,9 @@ def ga_ffm_plain(x, *, cfg: GAConfig, program: F.FitnessProgram):
 def ga_ffm_kernel(x, *, cfg: GAConfig, program: F.FitnessProgram
                   ) -> torch.Tensor:
     """y f32[R, N]: the FFM stage of a built-in problem over x
-    int32[R, N, V], a thread an individual (`ga_ffm` in the CUDA source);
-    a CPU tensor takes `ga_ffm_plain`."""
+    int32[R, N, V], a block a tile of `ffm_tiling(N, V, R)` rows of x seen
+    as [R * N, V] (`ga_ffm` in the CUDA source); a CPU tensor takes
+    `ga_ffm_plain`."""
     _check_device("ga_ffm_kernel", x)
     if problem_id(program) is None:
         raise ValueError(f"no Hopper FFM stage for this fitness "
@@ -459,26 +460,90 @@ def ga_ffm_kernel(x, *, cfg: GAConfig, program: F.FitnessProgram
     r, n, v = x.shape
     lo, span = program.device_consts(x.device)
     y = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    spread = ffm_spreads(n, v, r)
+    tile, chunk = ffm_tiling(n, v, r, spread)
     lib = kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ga_ffm_launch(x.data_ptr(), y.data_ptr(), lo.data_ptr(),
                                 span.data_ptr(), r, n, v, cfg.c,
-                                problem_id(program), stream)
+                                problem_id(program), tile, chunk,
+                                int(spread), stream)
     _check_launch(err, "ga_ffm")
     LAUNCHES["ga_ffm"] += 1
     return y
 
 
 # K1's global form cuts its work into blocks as the CUDA launchers check:
-# ga_operators a tile of pairs by a chunk of variables within a shared-memory
-# budget, ga_best a replica into a cluster of slices
+# ga_ffm a tile of rows by a chunk of variables, ga_operators a tile of
+# pairs by a chunk of variables, each within a shared-memory budget, and
+# ga_best a replica into a cluster of slices
+FFM_THREADS = 256              # threads of a ga_ffm block (kGlobalThreads)
+FFM_ROWS_TILE = 1024           # most rows of a rows-form tile (4 a thread)
+FFM_CHUNK = 64                 # most variables of a spread-form chunk
+FFM_SMEM_LIMIT = 49152         # bytes of a ga_ffm block (kFfmSmemLimit)
+FFM_ITEMS = 512                # (row, variable) items a tile is cut down to
+FFM_SPREAD_V = 4               # below this V always the rows form
 OPS_TILE_PAIRS = 256           # most pairs a ga_operators tile holds
 OPS_CHUNK = 64                 # most variables a ga_operators chunk holds
 OPS_SMEM_LIMIT = 27648         # bytes of a tile, 8 an SM (kOpsSmemLimit)
 OPS_ITEMS = 512                # (pair, variable) items a tile is cut down to
 OPS_GRID = 512                 # blocks a launch should have to fill the card
 BEST_SLICE = 4096              # values a ga_best block folds before B grows
+
+
+def ffm_spreads(n: int, v: int, replicas: int) -> bool:
+    """Whether ga_ffm takes its spread form over R * N rows of V variables
+    (a thread a term, then a thread a row folding them) rather than its
+    rows form (a thread whole rows): never below `FFM_SPREAD_V` (F1-F3, V
+    = 2, have no per-variable sum), and from there unless the rows form's
+    256-row tiles alone fill `OPS_GRID` blocks and fit the budget.  Where
+    they do, the rows form was the faster on the card, and where R * N is
+    small the spread form keeps the card busy (`PERF.md` §5)."""
+    if v < FFM_SPREAD_V:
+        return False
+    return not (replicas * n >= FFM_THREADS * OPS_GRID
+                and ffm_tile_bytes(FFM_THREADS, v, False) <= FFM_SMEM_LIMIT)
+
+
+def ffm_tile_bytes(tile: int, chunk: int, spread: bool) -> int:
+    """Shared memory of a ga_ffm block (`ffm_tile_bytes`): `tile` rows at
+    the odd stride `ffm_stride` (in the spread form one word past the chunk
+    for rosenbrock's halo), the chunk's lo and span, and in the spread form
+    a tile of terms."""
+    stride = (chunk + 1) | 1 if spread else chunk | 1
+    return 4 * ((2 if spread else 1) * tile * stride + 2 * (chunk + 1))
+
+
+def ffm_tiling(n: int, v: int, replicas: int,
+               spread: Optional[bool] = None) -> Tuple[int, int]:
+    """(tile, chunk) of ga_ffm over the R * N rows of `replicas` replicas of
+    (N, V), in the form `ffm_spreads` picks (or `spread`).  Rows form: chunk =
+    V, a tile of 256, 512 or 1024 rows (1, 2 or 4 a thread), the most that
+    fit `FFM_SMEM_LIMIT`, halved while the grid has fewer than `OPS_GRID`
+    blocks.  Spread form: a chunk of at most `FFM_CHUNK` variables (the last
+    one ragged), a tile a power of two up to 256 rows (a folding thread a
+    row) that fits the budget, then halved while the grid has fewer than
+    `OPS_GRID` blocks and a tile more than `FFM_ITEMS` items.  The last tile
+    of the rows may be ragged."""
+    if spread is None:
+        spread = ffm_spreads(n, v, replicas)
+    rows = replicas * n
+    if not spread:
+        tile = FFM_ROWS_TILE
+        while (tile > FFM_THREADS
+               and (ffm_tile_bytes(tile, v, False) > FFM_SMEM_LIMIT
+                    or -(-rows // tile) < OPS_GRID)):
+            tile //= 2
+        return tile, v
+    chunk = min(v, FFM_CHUNK)
+    tile = FFM_THREADS
+    while tile > 1 and ffm_tile_bytes(tile, chunk, True) > FFM_SMEM_LIMIT:
+        tile //= 2
+    while (tile > 1 and tile * chunk > FFM_ITEMS
+           and -(-rows // tile) < OPS_GRID):
+        tile //= 2
+    return tile, chunk
 
 
 def operators_tile_bytes(tile: int, chunk: int) -> int:
@@ -606,7 +671,12 @@ def ga_operators_kernel(x, y, sel, cross, mut, *, cfg: GAConfig
     return tuple(outs)
 
 
-GLOBAL_KERNEL_IDS = {"ga_ffm": 0, "ga_operators": 1, "ga_best": 2}
+# ga_ffm: its spread form's rastrigin build; ga_ffm:rows<K>: the rows form,
+# K rows a thread; ga_ffm:<problem>: the spread form's other builds
+GLOBAL_KERNEL_IDS = {"ga_ffm": 0, "ga_operators": 1, "ga_best": 2,
+                     "ga_ffm:rows1": 3, "ga_ffm:rows2": 4, "ga_ffm:rows4": 5,
+                     "ga_ffm:sphere": 6, "ga_ffm:rosenbrock": 7,
+                     "ga_ffm:ackley": 8}
 
 
 def global_kernel_attrs(name: str) -> Dict[str, int]:

@@ -226,6 +226,100 @@ def test_global_form_kernels_match_plain_at_edges(cuda_device, n, v,
                                             minimize=minimize)[1], bx)
 
 
+def _ffm_programs(v):
+    """The built-in problems at V: the summed four (rosenbrock from its
+    min_vars, 2) and F1-F3 at their V = 2."""
+    names = [f"{p}:{v}" for p in ("sphere", "rastrigin", "rosenbrock",
+                                  "ackley") if p != "rosenbrock" or v > 1]
+    names += list(EXACT) if v == 2 else []
+    return [TF.compile_program(problem=p, bits_per_var=16) for p in names]
+
+
+def _same_or_both_nan(a, b):
+    both = torch.isnan(a) & torch.isnan(b)
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a[~both], b[~both]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,replicas", [(n, v, r)
+                                          for n, v, r, _ in EDGE_SHAPES]
+                         + [(66, 2, 3), (8192, 2, 16), (8192, 1000, 3)])
+def test_ga_ffm_matches_plain_at_edges(cuda_device, n, v, replicas):
+    """ga_ffm equals its plain twin bit for bit for every built-in problem
+    at the edge shapes (both forms, ragged last tiles, V past one chunk),
+    and where a decode hand-set to (0, inf) puts NaN (word 0: 0 * inf)
+    and inf in x's decoded values, NaN where the twin has NaN.  (A spec
+    cannot give such a decode: the built-in problems fix their domains;
+    `dataclasses.replace` sets it on the program.)"""
+    g = torch.Generator(device=cuda_device).manual_seed(n + v)
+    x = torch.randint(0, 1 << 16, (replicas, n, v), generator=g,
+                      device=cuda_device, dtype=torch.int32)
+    cfg = TG.GAConfig(n=n, c=16, v=v, seed=1, mode="arith",
+                      sel_lane="gather")
+    before = K.LAUNCHES["ga_ffm"]
+    progs = _ffm_programs(v)
+    for prog in progs:
+        got = K.ga_ffm_kernel(x, cfg=cfg, program=prog)
+        assert torch.equal(got, K.ga_ffm_plain(x, cfg=cfg, program=prog)), \
+            prog.name
+        inf = dataclasses.replace(prog, domains=((0.0, np.inf),) * v)
+        xz = x.clone()
+        xz[:, ::3] = 0
+        want = K.ga_ffm_plain(xz, cfg=cfg, program=inf)
+        assert bool(torch.isnan(want).any() | torch.isinf(want).any())
+        assert _same_or_both_nan(K.ga_ffm_kernel(xz, cfg=cfg, program=inf),
+                                 want), prog.name
+    assert K.LAUNCHES["ga_ffm"] == before + 2 * len(progs)
+
+
+@pytest.mark.cuda
+def test_ffm_launch_refuses_what_it_cannot_run(cuda_device, monkeypatch):
+    """ga_ffm_launch refuses a tiling its kernel cannot run (a tile not a
+    power of two, a spread tile past 256 rows or for F1-F3, a rows tile
+    other than 256, 512 or 1024 or short of V, a tile past the
+    shared-memory budget), and the wrapper raises on the refusal: nothing
+    falls back to the plain twin."""
+    n, v, r = 1024, 16, 2
+    prog = TF.compile_program(problem=f"rastrigin:{v}", bits_per_var=16)
+    f3 = TF.compile_program(problem="F3", bits_per_var=16)
+    x = torch.randint(0, 1 << 16, (r, n, v), device=cuda_device,
+                      dtype=torch.int32)
+    y = torch.empty((r, n), device=cuda_device)
+    lo, span = prog.device_consts(cuda_device)
+    lib = K.kernel_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(tile, chunk, spread, problem=K.PROBLEM_IDS["rastrigin"]):
+        return lib.ga_ffm_launch(x.data_ptr(), y.data_ptr(), lo.data_ptr(),
+                                 span.data_ptr(), r, n, v, 16, problem, tile,
+                                 chunk, spread, stream)
+
+    assert launch(*K.ffm_tiling(n, v, r, True), 1) == 0
+    assert launch(K.FFM_THREADS, v, 0) == 0
+    # the rows form's 1024-row tile at V = 16 is past the budget
+    assert K.ffm_tile_bytes(1024, v, False) > K.FFM_SMEM_LIMIT
+    for tile, chunk, spread, problem in [
+            (24, v, 1, 4), (512, v, 1, 4), (16, v, 1, K.PROBLEM_IDS["F3"]),
+            (128, v, 0, 4), (2048, v, 0, 4), (256, 4, 0, 4), (256, 0, 1, 4),
+            (256, v + 1, 1, 4), (1024, v, 0, 4)]:
+        assert launch(tile, chunk, spread, problem) != 0, (tile, chunk)
+    torch.cuda.synchronize()
+    cfg = TG.GAConfig(n=n, c=16, v=v, seed=1, mode="arith",
+                      sel_lane="gather")
+    monkeypatch.setattr(K, "ffm_tiling", lambda *a, **k: (24, v))
+    before = K.LAUNCHES["ga_ffm"]
+    with pytest.raises(RuntimeError, match="ga_ffm kernel launch failed"):
+        K.ga_ffm_kernel(x, cfg=cfg, program=prog)
+    assert K.LAUNCHES["ga_ffm"] == before
+    cfg2 = TG.GAConfig(n=n, c=16, v=2, seed=1, mode="arith",
+                       sel_lane="gather")
+    monkeypatch.setattr(K, "ffm_spreads", lambda *a: True)
+    monkeypatch.setattr(K, "ffm_tiling", lambda *a, **k: (16, 2))
+    with pytest.raises(RuntimeError, match="ga_ffm kernel launch failed"):
+        K.ga_ffm_kernel(x[..., :2].contiguous(), cfg=cfg2, program=f3)
+
+
 @pytest.mark.cuda
 def test_ga_operators_takes_banks_off_8_byte_alignment(cuda_device):
     """ga_operators reads the selection and mutation banks as 8-byte words:
