@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace as TR
 from repro_torch.core import fitness as F
 from repro_torch.core import lfsr
 
@@ -135,7 +136,8 @@ def init_states(cfg: GAConfig, seeds, *, device) -> GAState:
     `device` over the whole stack."""
     n, v = cfg.n, cfg.v
     total = 2 * n + v * (n // 2) + v * n + v * n  # sel + cross + mut + init
-    words = np.stack([lfsr.np_seeds(sd, total) for sd in seeds])
+    with TR.span("init.seed_hash"):
+        words = np.stack([lfsr.np_seeds(sd, total) for sd in seeds])
     s = torch.from_numpy(words.view(np.int32)).to(device)
     r = len(seeds)
     sel = s[:, : 2 * n].reshape(r, 2, n)

@@ -70,6 +70,7 @@ import torch
 
 from repro_torch import autotune as _cost
 from repro_torch import convert
+from repro_torch import trace as TR
 from repro_torch.core import ga as G
 from repro_torch.core import islands as ISL
 from repro_torch.ga import compile_cache as CC
@@ -296,13 +297,14 @@ class FusedExecutor(Executor):
             bx = torch.zeros((L, cfg.v), dtype=torch.int32, device=dev)
             tbs, tms = [], []
             for g in plan:
-                x, sel, cross, mut, y, lby, lbx = K.ga_generation_kernel(
-                    x, sel, cross, mut, cfg=cfg, program=prog, gens=g,
-                    track_best=True)
-                by, bx = G.fold_best(by, bx, lby, lbx, mini)
-                tbs.append(torch.amin(y, dim=-1) if mini
-                           else torch.amax(y, dim=-1))
-                tms.append(torch.mean(y, dim=-1))
+                with TR.span("executor.launch"):
+                    x, sel, cross, mut, y, lby, lbx = K.ga_generation_kernel(
+                        x, sel, cross, mut, cfg=cfg, program=prog, gens=g,
+                        track_best=True)
+                    by, bx = G.fold_best(by, bx, lby, lbx, mini)
+                    tbs.append(torch.amin(y, dim=-1) if mini
+                               else torch.amax(y, dim=-1))
+                    tms.append(torch.mean(y, dim=-1))
             state = G.GAState(x, sel, cross, mut, states.k + gens)
             return (state, by, bx, torch.stack(tbs, dim=-1),
                     torch.stack(tms, dim=-1))
@@ -379,11 +381,60 @@ class Topology:
         raise NotImplementedError
 
 
+class SegmentClock:
+    """Device time of one engine's segments, without a profiler.
+
+    `start(sp, counts)` before a segment's first device operation and
+    `stop(sp, mark, counts)` after its last give the segment's span, on a
+    CUDA device while tracing is on: `device_ms`, the stream's time from
+    one timing event to the other; `gap_before_ms`, from the engine's
+    previous segment's end event to this start event (the device idle
+    between them, unless other work was queued there); and the counters
+    `kernel_launches.<kernel>`, what `counts` (a kernel -> launches dict)
+    gained.  `stop` records its end event inside a `segment.wait` span and
+    waits on it.  Off, or off CUDA, both do nothing."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.last_end = None
+
+    def _event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def start(self, sp, counts: dict) -> Optional[tuple]:
+        if not (sp and self.cuda):
+            return None
+        return self._event(), dict(counts)
+
+    def stop(self, sp, mark: Optional[tuple], counts: dict) -> None:
+        if mark is None:
+            self.last_end = None
+            return
+        start, before = mark
+        with TR.span("segment.wait"):
+            end = self._event()
+            end.synchronize()
+        for name, n in counts.items():
+            if n != before.get(name, 0):
+                sp.count("kernel_launches." + name, n - before.get(name, 0))
+        sp.set("device_ms", start.elapsed_time(end))
+        if self.last_end is not None:
+            sp.set("gap_before_ms", self.last_end.elapsed_time(start))
+        self.last_end = end
+
+
 class SingleTopology(Topology):
     """One population; `n_repeats` independent replicas ride the executor's
     stack axis.  A segment is exactly one executor block."""
 
     name = "single"
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.clock = SegmentClock(self.device)
 
     @staticmethod
     def supports(spec: GASpec, mesh=None) -> Optional[str]:
@@ -424,17 +475,22 @@ class SingleTopology(Topology):
                            traj_best=out.traj_best.cpu().numpy(),
                            traj_mean=out.traj_mean.cpu().numpy(), gens=gens,
                            telemetry=tele)
-        state, by, bx, tb, tm = self._runner(gens, False)(state)
-        per_rep = by.cpu().numpy()                             # [R]
-        bx = convert.words_to_numpy(bx)                        # [R, V]
-        tb, tm = tb.cpu().numpy(), tm.cpu().numpy()            # [R, T]
-        r = _arg_best(per_rep, mini)
-        reduce = np.min if mini else np.max
+        with TR.span("topology.segment") as sp:
+            mark = self.clock.start(sp, K.LAUNCHES)
+            state, by, bx, tb, tm = self._runner(gens, False)(state)
+            self.clock.stop(sp, mark, K.LAUNCHES)
+            with TR.span("segment.result"):
+                per_rep = by.cpu().numpy()                     # [R]
+                bx = convert.words_to_numpy(bx)                # [R, V]
+                tb, tm = tb.cpu().numpy(), tm.cpu().numpy()    # [R, T]
+                r = _arg_best(per_rep, mini)
+                reduce = np.min if mini else np.max
+                best_tb, mean_tm = reduce(tb, axis=0), tm.mean(axis=0)
         tele.per_repeat = RT.ReplicaStats(best=per_rep, best_x=bx,
                                           traj_best=tb, traj_mean=tm)
         return Segment(state=state, best_y=float(per_rep[r]),
-                       best_x=bx[r], traj_best=reduce(tb, axis=0),
-                       traj_mean=tm.mean(axis=0), gens=gens, telemetry=tele)
+                       best_x=bx[r], traj_best=best_tb, traj_mean=mean_tm,
+                       gens=gens, telemetry=tele)
 
 
 class IslandRingTopology(Topology):

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults as FLT
+from repro_torch import trace as TR
 from repro_torch.ckpt import checkpoint as CKPT
 from repro_torch.ga import telemetry as RT
 from repro_torch.ga.backends import BACKENDS, Backend, Segment
@@ -159,9 +160,12 @@ class Engine:
         self.faults = FLT.resolve_faults(self.options.faults)
         self.backend: Backend = BACKENDS[self.backend_name](
             spec, options=self.options)
+        # the run id of this engine's spans (`repro_torch.trace`)
+        self.trace_run = TR.new_run()
 
     def init_state(self):
-        return self.backend.init()
+        with TR.span("engine.init_state", (self.trace_run, None)):
+            return self.backend.init()
 
     def _result(self, seg: Segment, wall_s: float) -> EngineResult:
         scale = self.spec.fitness_scale()
@@ -182,12 +186,13 @@ class Engine:
     def run(self, generations: Optional[int] = None,
             state=None) -> EngineResult:
         gens = generations or self.spec.generations
-        t0 = time.perf_counter()
-        if state is None:
-            state = self.init_state()
-        seg = self.backend.segment(state, gens)
-        _sync(self.device)
-        return self._result(seg, time.perf_counter() - t0)
+        with TR.span("engine.run", (self.trace_run, None)):
+            t0 = time.perf_counter()
+            if state is None:
+                state = self.init_state()
+            seg = self.backend.segment(state, gens)
+            _sync(self.device)
+            return self._result(seg, time.perf_counter() - t0)
 
     def run_chunked(self, *, chunk_generations: Optional[int] = None,
                     generations: Optional[int] = None,
@@ -260,52 +265,55 @@ class Engine:
             tag = f"{fault_tag}|{self.backend_name}|chunk={chunk_idx + 1}"
             if self.faults is not None:
                 self.faults.inject("slow_chunk", tag)
-            t0 = time.perf_counter()
-            seg = self.backend.segment(state, min(chunk, total - done))
-            _sync(self.device)
-            dt = time.perf_counter() - t0
-            if self.faults is not None:
-                # crash AFTER the compute, BEFORE the checkpoint: the
-                # chunk's work is lost, earlier checkpoints are not, and a
-                # retry recomputes it deterministically
-                self.faults.inject("chunk_crash", tag)
-            state = seg.state
-            done += seg.gens
-            chunk_idx += 1
-            migrations += seg.telemetry.topology.migrations
-            if resumed_from is not None:
-                seg.telemetry.resumed_from = resumed_from
-            if best_y is None or (seg.best_y < best_y if mini
-                                  else seg.best_y > best_y):
-                best_y, best_x = seg.best_y, np.asarray(seg.best_x)
-            if ckpt_dir:
-                CKPT.save(ckpt_dir, step=done, tree=state,
-                          extra={"gens_done": done, "chunk_idx": chunk_idx,
-                                 "migrations": migrations,
-                                 "best_y": float(best_y),
-                                 "best_x": [int(v) for v in best_x],
-                                 "backend": self.backend_name},
-                          faults=self.faults, fault_tag=fault_tag)
-            yield {
-                "chunk": chunk_idx,
-                "resumed_from": resumed_from,
-                "gens_done": done,
-                "gens_total": total,
-                "chunk_gens": seg.gens,
-                "chunk_best": seg.best_y / scale,
-                "best_fitness": best_y / scale,
-                "best_params": self.spec.decode(best_x),
-                "traj_best": np.asarray(seg.traj_best) / scale,
-                "wall_s": dt,
-                "gens_per_s": seg.gens / dt if dt > 0 else float("inf"),
-                "backend": self.backend_name,
-                "problem": self.spec.problem or "blackbox",
-                "n_vars": self.spec.v,
-                "migrations": migrations,
-                "telemetry_unit_gens": seg.telemetry.topology
-                                          .telemetry_unit_gens,
-                "telemetry": seg.telemetry,
-            }
+            with TR.span("engine.chunk", (self.trace_run, chunk_idx + 1)):
+                t0 = time.perf_counter()
+                seg = self.backend.segment(state, min(chunk, total - done))
+                _sync(self.device)
+                dt = time.perf_counter() - t0
+                if self.faults is not None:
+                    # crash AFTER the compute, BEFORE the checkpoint: the
+                    # chunk's work is lost, earlier checkpoints are not, and
+                    # a retry recomputes it deterministically
+                    self.faults.inject("chunk_crash", tag)
+                state = seg.state
+                done += seg.gens
+                chunk_idx += 1
+                migrations += seg.telemetry.topology.migrations
+                if resumed_from is not None:
+                    seg.telemetry.resumed_from = resumed_from
+                if best_y is None or (seg.best_y < best_y if mini
+                                      else seg.best_y > best_y):
+                    best_y, best_x = seg.best_y, np.asarray(seg.best_x)
+                if ckpt_dir:
+                    CKPT.save(ckpt_dir, step=done, tree=state,
+                              extra={"gens_done": done,
+                                     "chunk_idx": chunk_idx,
+                                     "migrations": migrations,
+                                     "best_y": float(best_y),
+                                     "best_x": [int(v) for v in best_x],
+                                     "backend": self.backend_name},
+                              faults=self.faults, fault_tag=fault_tag)
+                out = {
+                    "chunk": chunk_idx,
+                    "resumed_from": resumed_from,
+                    "gens_done": done,
+                    "gens_total": total,
+                    "chunk_gens": seg.gens,
+                    "chunk_best": seg.best_y / scale,
+                    "best_fitness": best_y / scale,
+                    "best_params": self.spec.decode(best_x),
+                    "traj_best": np.asarray(seg.traj_best) / scale,
+                    "wall_s": dt,
+                    "gens_per_s": seg.gens / dt if dt > 0 else float("inf"),
+                    "backend": self.backend_name,
+                    "problem": self.spec.problem or "blackbox",
+                    "n_vars": self.spec.v,
+                    "migrations": migrations,
+                    "telemetry_unit_gens": seg.telemetry.topology
+                                              .telemetry_unit_gens,
+                    "telemetry": seg.telemetry,
+                }
+            yield out
             resumed_from = None    # only the first post-resume chunk carries it
 
 

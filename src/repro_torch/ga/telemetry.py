@@ -72,7 +72,10 @@ class TopologyInfo:
     n_islands: int = 1
     n_shards: int = 1          # mesh shards the island axis spans
     sharded: bool = False      # the run had a mesh (even of one shard)
-    launches: int = 0          # runner calls (kernel launches on single)
+    # runner calls (K1 wrapper calls on fused; the kernels they launched
+    # are the `topology.segment` span's `kernel_launches.*` counters,
+    # `repro_torch.trace`)
+    launches: int = 0
     migrations: int = 0
     # generations represented by ONE trajectory sample (resident/streamed
     # launches fold many generations per sample)
