@@ -32,6 +32,7 @@ import torch
 from repro_torch import trace as TR
 from repro_torch.core import fitness as F
 from repro_torch.core import lfsr
+from repro_torch.kernels import lfsr_kernel as K4
 
 
 # Past this population size the onehot selection lane's (N, N) one-hot
@@ -131,24 +132,20 @@ def fitness_for_problem(problem, cfg: GAConfig) -> FitnessFn:
 
 def init_states(cfg: GAConfig, seeds, *, device) -> GAState:
     """One population per seed, stacked on a leading axis: entry i is
-    bit-identical to `init_state` of `cfg` seeded `seeds[i]`.  The seed
-    hashes run on the host in one batch; the warm-up clocks run on
-    `device` over the whole stack."""
-    n, v = cfg.n, cfg.v
-    total = 2 * n + v * (n // 2) + v * n + v * n  # sel + cross + mut + init
+    bit-identical to `init_state` of `cfg` seeded `seeds[i]`.  On a CUDA
+    device one kernel derives every word on the card; on the CPU its plain
+    twin hashes the seeds on the host (`kernels.lfsr_kernel`).  This is the
+    one kernel the module launches, so on a card every backend's initial
+    state, the reference backend's too, comes from it; the kernel is held
+    to its plain twin on the card apart from any backend."""
+    seeds = list(seeds)
+    device = torch.device(device)
     with TR.span("init.seed_hash"):
-        words = np.stack([lfsr.np_seeds(sd, total) for sd in seeds])
-    s = torch.from_numpy(words.view(np.int32)).to(device)
-    r = len(seeds)
-    sel = s[:, : 2 * n].reshape(r, 2, n)
-    cross = s[:, 2 * n: 2 * n + v * (n // 2)].reshape(r, v, n // 2)
-    mut = s[:, 2 * n + v * (n // 2): 2 * n + v * (n // 2) + v * n]
-    init_bank = s[:, -v * n:].reshape(r, n, v)
-    # a few warmup clocks, then MSB-truncate to c bits per gene
-    x = lfsr.truncate(lfsr.steps(init_bank, 8), cfg.c)
-    return GAState(x=x, sel_lfsr=sel.contiguous(), cross_lfsr=cross.contiguous(),
-                   mut_lfsr=mut.reshape(r, v, n).contiguous(),
-                   k=torch.zeros((r,), dtype=torch.int32, device=device))
+        leaves = K4.seed_state_kernel(cfg.n, cfg.v, cfg.c, seeds,
+                                      device=device)
+        TR.count("device_words" if device.type == "cuda" else "host_words",
+                 len(seeds) * K4.state_words(cfg.n, cfg.v))
+    return GAState(*leaves)
 
 
 def init_state(cfg: GAConfig, *, device) -> GAState:

@@ -28,6 +28,7 @@ from repro_torch.core import ga as TG  # noqa: E402
 from repro_torch.core import islands as TISL  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
 from repro_torch.kernels import lfsr_kernel as K4  # noqa: E402
+from test_torch_seed_state import ZERO_WORDS  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -697,6 +698,50 @@ def test_lfsr_kernel_matches_plain(cuda_device, shape, steps):
     torch.cuda.synchronize()
     assert K4.LAUNCHES["lfsr_advance"] == before + 1
     assert torch.equal(got, K4.lfsr_advance_plain(s, steps))
+
+
+# ---------------------------------------------------------------------------
+# The initial state's seed words
+# ---------------------------------------------------------------------------
+
+# (n, v, c, seeds): both cells' shapes at full size, N not a power of two,
+# V=1 and R=1, c of 1, 16 and 32, seeds at the edges of 32 bits and past
+# them, a packed job's seed list, `init_islands`' seeds
+SEED_STATE_CASES = {
+    "d10": (1024, 10, 16, list(range(3_000_000_017, 3_000_000_068))),
+    "d100": (4096, 100, 16, list(range(7, 58))),
+    "n66": (66, 3, 10, [1, 2, 3]),
+    "n100": (100, 2, 12, [5, 6]),
+    "v1-r1": (16, 1, 10, [123]),
+    "c1": (64, 4, 1, [0, 1]),
+    "c16": (64, 4, 16, [0, 1]),
+    "c32": (64, 4, 32, [0, 1]),
+    "seed-edges": (32, 2, 10, [0, 2**32 - 1, -5, 2**32 + 7]),
+    "packed": (64, 2, 10, [9, 2, 1_000_003, 2, 77]),
+    "islands": (32, 2, 10, [11 + 7919 * (i + 1) for i in range(8)]),
+    "zero-words": (16, 2, 10, [1] + [sd for sd, _ in ZERO_WORDS]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEED_STATE_CASES))
+def test_seed_state_kernel_matches_plain(cuda_device, case):
+    """One launch gives the plain twin's five leaves bit for bit."""
+    n, v, c, seeds = SEED_STATE_CASES[case]
+    before = K4.LAUNCHES["seed_state"]
+    got = K4.seed_state_kernel(n, v, c, seeds, device=cuda_device)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["seed_state"] == before + 1
+    want = K4.seed_state_plain(n, v, c, seeds, cuda_device)
+    for name, g, w in zip(("x", "sel", "cross", "mut", "k"), got, want):
+        assert g.is_cuda and g.is_contiguous(), name
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+    if case == "zero-words":
+        for i, (_, word) in enumerate(ZERO_WORDS, start=1):
+            raw = torch.cat([t[i].flatten() for t in got[1:4]])
+            if word < raw.numel():
+                assert int(raw[word]) & 0xFFFFFFFF == 0xDEADBEEF
 
 
 # ---------------------------------------------------------------------------

@@ -47,11 +47,20 @@ def _assert_state_equal(jst, tst):
 
 @pytest.mark.parametrize("n,v,c,seed", [(16, 2, 10, 1), (64, 2, 10, 7),
                                         (256, 4, 16, 12345),
-                                        (1024, 8, 6, 2**32 - 1)])
+                                        (1024, 8, 6, 2**32 - 1),
+                                        (66, 1, 31, -5), (100, 3, 1, 2**32 + 9),
+                                        (1024, 10, 16, 0)])
 def test_init_state_bit_exact(n, v, c, seed):
+    """`init_state`, and each replica of `init_states` over a seed list that
+    is neither consecutive nor sorted, equal JAX's `init_state` of its seed."""
     jcfg, tcfg = _cfgs(n, v, c, True, seed)
     _assert_state_equal(JG.init_state(jcfg),
                         TG.init_state(tcfg, device="cpu"))
+    seeds = [seed, seed + 7919, seed - 3, 2 * seed + 1]
+    stack = TG.init_states(tcfg, seeds, device="cpu")
+    for i, sd in enumerate(seeds):
+        _assert_state_equal(JG.init_state(dataclasses.replace(jcfg, seed=sd)),
+                            TG.GAState(*(leaf[i] for leaf in stack)))
 
 
 @pytest.mark.parametrize("minimize", [True, False])

@@ -96,6 +96,25 @@ def test_spans_nest_through_run_and_init_state():
     assert "segment.wait" not in names
 
 
+def _seed_hash_attrs(device, n_repeats):
+    spec = ga.GASpec(problem="rastrigin:3", n=16, bits_per_var=10,
+                     mode="arith", generations=4, n_repeats=n_repeats,
+                     gens_per_epoch=4, seed=7)
+    opts = ga.EngineOptions(device=device, cost_table=False, faults=False)
+    eng = ga.Engine(spec, "fused", options=opts)
+    TR.enable()
+    eng.init_state()
+    (sp,) = _by_name(TR.records())["init.seed_hash"]
+    # a replica's words: sel 2N, cross V*N/2, mut V*N, population V*N
+    return sp["attrs"], n_repeats * (2 * 16 + 3 * 8 + 2 * 3 * 16)
+
+
+@pytest.mark.parametrize("n_repeats", [1, 2, 5])
+def test_seed_hash_counts_host_words_on_the_cpu(n_repeats):
+    attrs, words = _seed_hash_attrs("cpu", n_repeats)
+    assert attrs == {"host_words": words}
+
+
 def test_run_ids_follow_the_chunks():
     TR.enable()
     eng = ga.Engine(SPEC, "reference", options=CPU)
@@ -277,3 +296,10 @@ def test_segment_counts_and_times_on_the_card(cuda_device, problem, n, gpe):
             assert s["attrs"]["gap_before_ms"] >= 0
     waits = _by_name(TR.records())["segment.wait"]
     assert len(waits) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_repeats", [1, 51])
+def test_seed_hash_counts_device_words_on_the_card(cuda_device, n_repeats):
+    attrs, words = _seed_hash_attrs("cuda", n_repeats)
+    assert attrs == {"device_words": words}
