@@ -4,8 +4,16 @@ result line.
     run_cell(root, manifest, workload, seed, seconds, trace, device=...)
 
 The cell's configuration file gives the spec and the backend, its
-traffic file the kind of load (`loadgen`).  Set-up builds the system,
-warms one job or takes the stream's first chunk (which holds the initial
+traffic file the kind of load (`loadgen`).  Whatever depends on the
+configuration's shape comes from two modules that the configuration file
+names by their paths from the root, so a new deployment comes as new
+files: its plain reference (`"reference"`, `reference/plain.py` where
+absent: the shape, the state's leaves, the evaluations a generation, the
+trajectory's sampling, and the replay the check compares against) and
+its yardstick (`"work"`, `work.py` where absent: the least time of a run
+of generations, the launch unit, the form the metric readers key on, and
+the kernel names the trace must hold).  Set-up builds the system, warms
+one job or takes the stream's first chunk (which holds the initial
 state) at the cell's own shapes, and allocates the buffers the check
 keeps its samples in; the window then offers load for `seconds` and
 closes when the first job or chunk to end past that ends, so every unit
@@ -17,8 +25,8 @@ The check's buffers are allocated before the peak counter starts and
 stay allocated until it is read, so the system's own peak is the
 counter's less their bytes.  After the window, that peak is read, the
 system's state freed, and the kept jobs or chunks are replayed by the
-plain reference (`reference/plain.py`) on the same device and compared
-word for word (`check`).  A stream is checked from its start (the
+configuration's reference on the same device and compared word for word
+(`check`).  A stream is checked from its start (the
 reference's own initial state, through the first chunk) and, at each
 sampled window chunk, from the state the program handed that chunk: the
 reference follows the program chunk by chunk there, as replaying every
@@ -34,6 +42,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,26 +50,57 @@ import torch
 from gabench import check as CHK
 from gabench import loadgen as LG
 from gabench import trace as TR
-from gabench import work as W
-from gabench.reference import plain as P
-from gabench.systems import SYSTEMS, shape_of
+from gabench.systems import SYSTEMS
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-GA_KERNELS = ("ga_generation", "ga_ffm", "ga_operators", "ga_best",
-              "ga_epoch", "ga_streamed_epoch")
+# what a configuration file names where it names no module of its own
+REFERENCE = "gabench/reference/plain.py"
+WORK = "gabench/work.py"
+
+
+def _load(path: Path, name: str):
+    """A module of the benchmark's, loaded from its file under `name` (in
+    `sys.modules`, where a dataclass looks its module up)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_of(root: Path, config: dict):
+    """The configuration's plain reference module."""
+    rel = config.get("reference", REFERENCE)
+    return _load(root / rel, "gabench_reference_" + Path(rel).stem)
+
+
+def work_of(root: Path, config: dict):
+    """The configuration's yardstick module."""
+    rel = config.get("work", WORK)
+    return _load(root / rel, "gabench_work_" + Path(rel).stem)
+
+
+class Cell(NamedTuple):
+    """What one run of a cell holds fixed."""
+
+    config: dict
+    traffic: dict
+    ref: object         # the reference module
+    work: object        # the yardstick module
+    shape: object       # `ref.shape_of(config)`
+    replicas: int
 
 
 class Slot:
     """Device buffers for one kept job or chunk: its output state (and,
     for a chunk, the state it was handed), and its host results."""
 
-    def __init__(self, shape: P.Shape, replicas: int, device, inputs: bool):
-        n, v, r = shape.n, shape.v, replicas
+    def __init__(self, cell: Cell, device, inputs: bool):
+        shapes = cell.ref.leaf_shapes(cell.shape, cell.replicas)
 
         def leaves():
             return tuple(torch.empty(s, dtype=torch.int32, device=device)
-                         for s in ((r, n, v), (r, 2, n), (r, v, n // 2),
-                                   (r, v, n), (r,)))
+                         for s in shapes)
         self.outs = leaves()
         self.ins = leaves() if inputs else None
         self.out = None
@@ -126,11 +166,8 @@ def _metric_readers(root: Path, manifest: dict, workload: str, trace: bool):
             continue
         if "workloads" not in m and m["moves"] not in moved:
             continue
-        path = root / "gabench" / "metrics" / f"{m['name']}.py"
-        spec = importlib.util.spec_from_file_location(
-            "gabench_metric_" + m["name"].replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        mod = _load(root / "gabench" / "metrics" / f"{m['name']}.py",
+                    "gabench_metric_" + m["name"].replace(".", "_"))
         out.append((m, mod.read))
     return out
 
@@ -148,7 +185,7 @@ class Record:
         self.setup_s = 0.0
         self.spans = None
         self.slice = None
-        self.form = None        # K1's form: "block" or "global"
+        self.form = None        # the yardstick's form: "block", "global"...
         self.unit = 1           # generations a replica's state stays on chip
         self.traj_unit = 1      # generations a trajectory sample covers
         self.device = None
@@ -182,7 +219,7 @@ def _open_slice(rec, system, t: float, seconds: float, cuda: bool) -> None:
         sl.start(cuda, system.launches())
 
 
-def _count_slice(rec, system, shape, replicas, gens, traffic, cuda) -> None:
+def _count_slice(rec, system, cell, gens, cuda) -> None:
     """Count a finished unit into the open slice; close the slice once it
     has lasted `trace_slice_s`."""
     sl = rec.slice
@@ -190,19 +227,19 @@ def _count_slice(rec, system, shape, replicas, gens, traffic, cuda) -> None:
         return
     sl.gens += gens
     sl.units += 1
-    sl.least_ms += W.generations_bound(shape, replicas, gens,
-                                       rec.unit)["bound_ms"]
-    if _now() - sl.t0 >= traffic["trace_slice_s"]:
+    sl.least_ms += cell.work.generations_bound(cell.shape, cell.replicas,
+                                               gens, rec.unit)["bound_ms"]
+    if _now() - sl.t0 >= cell.traffic["trace_slice_s"]:
         sl.stop(cuda, system.launches())
 
 
-def run_jobs(system, config, traffic, shape, seed, seconds, rec, device,
-             cuda, t0):
-    replicas = config["spec"]["n_repeats"]
+def run_jobs(system, cell, seed, seconds, rec, device, cuda, t0):
+    ref, replicas, shape = cell.ref, cell.replicas, cell.shape
+    evals = replicas * ref.evals_per_generation(shape)
     base = LG.seed_base(seed)
-    times = LG.sample_times(seed, seconds, traffic["sample"])
+    times = LG.sample_times(seed, seconds, cell.traffic["sample"])
     with check_buffers(rec, cuda):
-        slots = [Slot(shape, replicas, device, False) for _ in times]
+        slots = [Slot(cell, device, False) for _ in times]
     # set-up: one job of the cell's shapes, seeded apart from the window's
     system.job(LG.job_seed(base, -1, replicas))
     if cuda:
@@ -227,35 +264,36 @@ def run_jobs(system, config, traffic, shape, seed, seconds, rec, device,
             continue
         rec.latencies.append(_now() - ta)
         rec.gens += out.gens
-        rec.evals += replicas * shape.n * out.gens
+        rec.evals += evals * out.gens
         if keep:
             slot = slots[len(kept)]
             slot.take(slot.outs, out.state)
             slot.out, slot.seed = out._replace(state=slot.outs), s
             kept.append(slot)
-        _count_slice(rec, system, shape, replicas, out.gens, traffic, cuda)
+        _count_slice(rec, system, cell, out.gens, cuda)
     rec.window_s = _now() - start
 
     def checks(device):
         for slot in kept:
-            st = P.init(shape, [slot.seed + r for r in range(replicas)],
-                        device)
-            ref = P.run(shape, st, slot.out.gens, rec.traj_unit)
-            yield CHK.differences(ref, slot.out)
+            st = ref.init(shape, [slot.seed + r for r in range(replicas)],
+                          device)
+            run = ref.run(shape, st, slot.out.gens, rec.traj_unit)
+            yield CHK.differences(run, slot.out)
     return checks, len(kept)
 
 
-def run_stream(system, config, traffic, shape, seed, seconds, rec, device,
-               cuda, t0):
-    replicas = config["spec"]["n_repeats"]
-    chunk = config["chunk_generations"]
+def run_stream(system, cell, seed, seconds, rec, device, cuda, t0):
+    ref, replicas, shape = cell.ref, cell.replicas, cell.shape
+    evals = replicas * ref.evals_per_generation(shape)
+    chunk = cell.config["chunk_generations"]
     base = LG.seed_base(seed)
-    times = LG.sample_times(seed, seconds, traffic["sample"])
+    times = LG.sample_times(seed, seconds, cell.traffic["sample"])
     with check_buffers(rec, cuda):
-        first = Slot(shape, replicas, device, False)
-        slots = [Slot(shape, replicas, device, True) for _ in times]
+        first = Slot(cell, device, False)
+        slots = [Slot(cell, device, True) for _ in times]
     tap = Tap(rec.spans)
-    chunks = system.stream(base, chunk, traffic["run_generations"], tap)
+    chunks = system.stream(base, chunk, cell.traffic["run_generations"],
+                           tap)
     # set-up: the first chunk, which builds the initial state
     tap.armed = first
     out = next(chunks)
@@ -281,23 +319,23 @@ def run_stream(system, config, traffic, shape, seed, seconds, rec, device,
             _fail(rec, "chunk")
             break
         rec.gens += out.gens
-        rec.evals += replicas * shape.n * out.gens
+        rec.evals += evals * out.gens
         if keep:
             slot = slots[len(kept)]
             slot.out = out._replace(state=slot.outs)
             kept.append(slot)
-        _count_slice(rec, system, shape, replicas, out.gens, traffic, cuda)
+        _count_slice(rec, system, cell, out.gens, cuda)
     rec.window_s = _now() - start
     chunks.close()
 
     def checks(device):
-        st = P.init(shape, [base + r for r in range(replicas)], device)
+        st = ref.init(shape, [base + r for r in range(replicas)], device)
         yield CHK.differences(
-            P.run(shape, st, first.out.gens, rec.traj_unit), first.out)
+            ref.run(shape, st, first.out.gens, rec.traj_unit), first.out)
         for slot in kept:
-            ref = P.run(shape, P.State(*slot.ins), slot.out.gens,
-                        rec.traj_unit)
-            yield CHK.differences(ref, slot.out)
+            run = ref.run(shape, ref.State(*slot.ins), slot.out.gens,
+                          rec.traj_unit)
+            yield CHK.differences(run, slot.out)
     return checks, 1 + len(kept)
 
 
@@ -325,21 +363,20 @@ def run_cell(root: Path, manifest: dict, workload: str, seed: int,
     _, config, traffic = LG.load_cell(root, manifest, workload)
     readers = _metric_readers(root, manifest, workload, trace)
     cuda = torch.device(device).type == "cuda"
-    shape = shape_of(config)
+    ref, work = reference_of(root, config), work_of(root, config)
+    shape = ref.shape_of(config)
     replicas = config["spec"]["n_repeats"]
+    cell = Cell(config, traffic, ref, work, shape, replicas)
     rec = Record()
-    gpe = config["spec"]["gens_per_epoch"]
-    rec.unit = W.launch_unit(shape, gpe)
-    # the fused executor samples the trajectory once a launch
-    rec.traj_unit = gpe if config["backend"] == "fused" else 1
-    rec.form = ("block" if W.one_block_bytes(shape) <= W.SMEM_LIMIT
-                else "global")
+    rec.unit = work.launch_unit(shape, config["spec"])
+    rec.traj_unit = ref.traj_unit(config)
+    rec.form = work.form(shape)
     rec.spans = TR.Spans(trace, cuda)
     rec.slice = TR.Slice() if trace else None
     rec.device = device
-    sut = SYSTEMS[system](config, device)
+    sut = SYSTEMS[system](config, device, ref)
     checks, checked = RUNNERS[traffic["kind"]](
-        sut, config, traffic, shape, seed, seconds, rec, device, cuda, t0)
+        sut, cell, seed, seconds, rec, device, cuda, t0)
     if cuda:
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - rec.held if cuda else 0
@@ -349,7 +386,7 @@ def run_cell(root: Path, manifest: dict, workload: str, seed: int,
     if trace:
         rec.slice.trace = (rec.slice.reduce() if rec.slice.prof is not None
                            else None)
-        if cuda and not ga_kernels_seen(rec):
+        if cuda and not ga_kernels_seen(rec, work.KERNELS):
             raise RuntimeError("the profiler recorded no device time for "
                                "the GA's kernels in the traced slice")
     if cuda:
@@ -375,10 +412,10 @@ def run_cell(root: Path, manifest: dict, workload: str, seed: int,
                  f"{rec.slice.gens} generations, {rec.slice.host_s:.4f} s "
                  "on the host clock")
     print(info, file=err)
-    gb = W.generations_bound(shape, replicas, rec.unit, rec.unit)
+    gb = work.generations_bound(shape, replicas, rec.unit, rec.unit)
     print(f"least time a generation ({rec.form} form, unit {rec.unit}): "
           f"{gb['bound_ms'] / rec.unit:.6f} ms by {gb['bound_by']} at "
-          f"{W.HBM_BYTES_PER_S:.3e} B/s and {W.OPS_PER_S:.3e} op/s; op "
+          f"{work.HBM_BYTES_PER_S:.3e} B/s and {work.OPS_PER_S:.3e} op/s; op "
           f"classes {gb['class_bound_ms'] / rec.unit:.6f} ms by "
           f"{gb['class_bound_by']} (information only); card: "
           f"{card_line() if cuda else 'none'}", file=err)
@@ -420,8 +457,9 @@ def run_cell(root: Path, manifest: dict, workload: str, seed: int,
     return result
 
 
-def ga_kernels_seen(rec: Record) -> bool:
-    """Whether the traced slice holds device time of the GA's kernels."""
+def ga_kernels_seen(rec: Record, kernels) -> bool:
+    """Whether the traced slice holds device time of one of `kernels`
+    (the yardstick's names for the GA's kernels)."""
     red = rec.slice.trace if rec.slice is not None else None
     return bool(red) and any(k in name for name in red["names"]
-                             for k in GA_KERNELS)
+                             for k in kernels)

@@ -22,6 +22,12 @@ GA defines (the port's `reference` backend computes the same words):
 fused executor reports it.  `fitness_dtype=torch.bfloat16` computes the
 fitness in the next precision down: the control that the comparison must
 reject.
+
+A configuration file names its reference (`"reference"`, this file where
+absent), and the harness takes from it everything that depends on the
+configuration's shape: `shape_of`, `leaf_shapes`, `evals_per_generation`,
+`State`, `init`, `run`, `traj_unit` and `cpu_cut`.  This one is one
+population a replica, state [R, N, V] and its three banks.
 """
 
 from __future__ import annotations
@@ -87,6 +93,45 @@ class Run(NamedTuple):
 
 # (domain, terms) of the problems a configuration may name
 DOMAINS = {"rastrigin": (-5.12, 5.12)}
+
+
+def shape_of(config: dict) -> Shape:
+    """The shape of a configuration file's spec."""
+    spec = config["spec"]
+    name, _, v = spec["problem"].partition(":")
+    return Shape(problem=name, n=spec["n"], v=int(v), c=spec["bits_per_var"],
+                 mutation_rate=spec["mutation_rate"],
+                 steps_per_draw=spec["steps_per_draw"],
+                 minimize=spec["minimize"])
+
+
+def leaf_shapes(shape: Shape, replicas: int) -> tuple:
+    """The int32 state leaves' shapes, in `State`'s order (the port's)."""
+    n, v, r = shape.n, shape.v, replicas
+    return (r, n, v), (r, 2, n), (r, v, n // 2), (r, v, n), (r,)
+
+
+def evals_per_generation(shape: Shape) -> int:
+    """Fitness evaluations one replica makes a generation."""
+    return shape.n
+
+
+def traj_unit(config: dict) -> int:
+    """Generations one trajectory sample covers: the fused executor
+    samples once a launch, every other backend once a generation."""
+    return (config["spec"]["gens_per_epoch"] if config["backend"] == "fused"
+            else 1)
+
+
+def cpu_cut(config: dict) -> dict:
+    """The configuration cut to a CPU test's size: the same problem,
+    operators and launch folding; V <= 4, N = 16, 3 replicas,
+    8-generation jobs and chunks."""
+    spec = dict(config["spec"])
+    name, _, v = spec["problem"].partition(":")
+    spec.update(problem=f"{name}:{min(int(v), 4)}", n=16, n_repeats=3,
+                generations=8, gens_per_epoch=min(spec["gens_per_epoch"], 4))
+    return dict(config, spec=spec, chunk_generations=8)
 
 
 def seed_words(seed: int, count: int) -> np.ndarray:

@@ -2,12 +2,14 @@
 computed one precision down and put in its place (`Control`), whose
 output the check has to reject.
 
-Both offer `job(seed, spans)` -> `check.Out`, one job of the
-configuration's spec with spec seed `seed`, and `stream(seed, chunk,
-total, tap)`, an iterator of `check.Out` a chunk.  `tap` wraps the
-function that advances the state one chunk (`state, gens -> result with
-.state`), so the harness can copy a chunk's input and output state for
-the check and time the segment in a traced run.
+Both are built from the configuration, the device and the
+configuration's reference module, and offer `job(seed, spans)` ->
+`check.Out`, one job of the configuration's spec with spec seed `seed`,
+and `stream(seed, chunk, total, tap)`, an iterator of `check.Out` a
+chunk.  `tap` wraps the function that advances the state one chunk
+(`state, gens -> result with .state`), so the harness can copy a chunk's
+input and output state for the check and time the segment in a traced
+run.
 """
 
 from __future__ import annotations
@@ -18,28 +20,17 @@ import numpy as np
 import torch
 
 from gabench.check import Out
-from gabench.reference import plain as P
-
-
-def shape_of(config: dict) -> P.Shape:
-    """The reference's shape of a configuration file's spec."""
-    spec = config["spec"]
-    name, _, v = spec["problem"].partition(":")
-    return P.Shape(problem=name, n=spec["n"], v=int(v), c=spec["bits_per_var"],
-                   mutation_rate=spec["mutation_rate"],
-                   steps_per_draw=spec["steps_per_draw"],
-                   minimize=spec["minimize"])
 
 
 class Port:
     """`repro_torch.ga` as a user drives it: `solve` a job, or
     `Engine.run_chunked` a long run, with `EngineOptions(device=...,
     cost_table=False, faults=False)` so that no ambient cost table or
-    fault rule decides anything."""
+    fault rule decides anything.  It takes nothing of the reference."""
 
     name = "repro_torch"
 
-    def __init__(self, config: dict, device: str):
+    def __init__(self, config: dict, device: str, ref):
         from repro_torch import ga
         from repro_torch.kernels import ga_step
         self.ga, self.kernels = ga, ga_step
@@ -84,31 +75,34 @@ class Port:
 
 
 class Control:
-    """The plain reference with its fitness computed in bfloat16, the
-    precision below the configuration's float32, in the program's place."""
+    """The configuration's reference with its fitness computed in
+    bfloat16, the precision below the configuration's float32, in the
+    program's place."""
 
     name = "control-bf16"
 
-    def __init__(self, config: dict, device: str):
-        self.shape = shape_of(config)
+    def __init__(self, config: dict, device: str, ref):
+        self.ref = ref
+        self.shape = ref.shape_of(config)
         self.replicas = config["spec"]["n_repeats"]
         self.gens = config["spec"]["generations"]
-        self.unit = config["spec"]["gens_per_epoch"]
+        self.unit = ref.traj_unit(config)
         self.device = device
 
     def launches(self) -> int:
         return 0
 
-    def _init(self, seed: int) -> P.State:
-        return P.init(self.shape, [seed + r for r in range(self.replicas)],
-                      self.device)
+    def _init(self, seed: int):
+        return self.ref.init(self.shape,
+                             [seed + r for r in range(self.replicas)],
+                             self.device)
 
-    def _run(self, state, gens: int) -> P.Run:
-        return P.run(self.shape, P.State(*state), gens, self.unit,
-                     fitness_dtype=torch.bfloat16)
+    def _run(self, state, gens: int):
+        return self.ref.run(self.shape, self.ref.State(*state), gens,
+                            self.unit, fitness_dtype=torch.bfloat16)
 
     @staticmethod
-    def _out(run: P.Run, state, gens: int) -> Out:
+    def _out(run, state, gens: int) -> Out:
         return Out(state, run.best.cpu().numpy(),
                    run.best_x.cpu().numpy().view(np.uint32),
                    run.traj_best.cpu().numpy(), run.traj_mean.cpu().numpy(),

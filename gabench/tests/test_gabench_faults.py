@@ -4,15 +4,21 @@ harness's look for a card skipped), comes out correct as it stands and
 not correct when the control (the reference in bfloat16) is put in the
 program's place, or when the timed path is broken underneath: a step
 that returns its state unchanged, half of the replica batch left out, an
-answer altered where it is produced.  (No cell has an exchange between
-chips to leave out.)"""
+answer altered where it is produced.  Each fault is planted in the
+result of the cell's backend's `segment`, which every backend's run
+passes through whichever kernels or fitness stage it runs, and, where
+the cell's yardstick gives K1's block or global form, in K1's kernel
+(its CPU twin).  The cells and their CPU cuts come from the manifest and
+each configuration's reference, so a new deployment is covered as it
+comes.  (No cell has an exchange between chips to leave out.)"""
 
+import dataclasses
 import json
-import shutil
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,32 +30,45 @@ for p in (str(ROOT / "src"), str(ROOT)):
 from gabench import trace as TR  # noqa: E402
 from gabench import harness as H  # noqa: E402
 from gabench.harness import run_cell  # noqa: E402
+from repro_torch.ga import backends as B  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in MANIFEST["workloads"]]
 SEED = 2 ** 31 + 11
+FAULTS = ("unchanged", "half_batch", "altered_answer")
+
+
+def _config(cell):
+    """The configuration file of a cell, as a dict."""
+    name = {w["name"]: w for w in MANIFEST["workloads"]}[cell]["config"]
+    conf = {c["name"]: c for c in MANIFEST["configs"]}[name]
+    return json.loads((ROOT / conf["file"]).read_text())
+
+
+def _form(cell):
+    conf = _config(cell)
+    return H.work_of(ROOT, conf).form(
+        H.reference_of(ROOT, conf).shape_of(conf))
+
+
+# every fault at the segment's result in every cell, and in K1's kernel
+# in the cells whose yardstick says K1 runs them
+BROKEN = [(cell, kind) for cell in CELLS
+          for kind in ((*FAULTS,) if _form(cell) in ("block", "global")
+                       else ()) + tuple(f"segment_{f}" for f in FAULTS)]
 
 
 @pytest.fixture(scope="module")
-def tiny_root(tmp_path_factory):
-    """The benchmark's own traffic and metric files beside each
-    configuration cut to a CPU's size (same problem, operators and launch
-    folding; V <= 4, N = 16, 3 replicas, 8-generation jobs and chunks)."""
-    root = tmp_path_factory.mktemp("gabench")
-    for sub in ("traffic", "metrics"):
-        shutil.copytree(ROOT / "gabench" / sub, root / "gabench" / sub)
+def tiny_root(tmp_path_factory, copy_bench):
+    """The benchmark's own files beside each configuration cut to a CPU's
+    size by its reference's `cpu_cut`."""
+    root = copy_bench(tmp_path_factory.mktemp("gabench"))
     for c in MANIFEST["configs"]:
         conf = json.loads((ROOT / c["file"]).read_text())
-        spec = conf["spec"]
-        name, _, v = spec["problem"].partition(":")
-        spec.update(problem=f"{name}:{min(int(v), 4)}", n=16, n_repeats=3,
-                    generations=8,
-                    gens_per_epoch=min(spec["gens_per_epoch"], 4))
-        conf["chunk_generations"] = 8
         path = root / c["file"]
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps(conf))
+        path.write_text(json.dumps(H.reference_of(ROOT, conf).cpu_cut(conf)))
     return root
 
 
@@ -79,6 +98,37 @@ def _broken(kind):
     return kernel
 
 
+def _broken_segment(kind, segment):
+    """`segment` with its result broken as `kind` says: the state it was
+    handed back, half the replicas' state and results left at what they
+    were handed (the results copied from replica 0), or one bit of a
+    replica's best chromosome flipped."""
+    def broken(self, state, gens):
+        before = [t.clone() for t in state]
+        seg = segment(self, state, gens)
+        leaves, rep = list(seg.state), seg.telemetry.per_repeat
+        if kind == "unchanged":
+            leaves = before
+        elif kind == "half_batch":
+            h = leaves[0].shape[0] // 2 or 1
+            leaves = [torch.cat([a[:h], b[h:]]) for a, b in zip(leaves,
+                                                               before)]
+
+            def rest(a):
+                return np.concatenate([a[:h], np.repeat(a[:1], len(a) - h,
+                                                        axis=0)])
+            rep = dataclasses.replace(
+                rep, best=rest(rep.best), best_x=rest(rep.best_x),
+                traj_best=rest(rep.traj_best), traj_mean=rest(rep.traj_mean))
+        elif kind == "altered_answer":
+            bx = rep.best_x.copy()
+            bx[0, 0] ^= 1
+            rep = dataclasses.replace(rep, best_x=bx)
+        seg.telemetry.per_repeat = rep
+        return dataclasses.replace(seg, state=type(seg.state)(*leaves))
+    return broken
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(tiny_root, cell):
     res = _run(tiny_root, cell)
@@ -99,11 +149,14 @@ def test_control_is_rejected(tiny_root, cell):
     assert res["check"]["state_words_differing"]["value"] > 0
 
 
-@pytest.mark.parametrize("kind", ["unchanged", "half_batch",
-                                  "altered_answer"])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell,kind", BROKEN)
 def test_broken_step_is_rejected(tiny_root, cell, kind, monkeypatch):
-    monkeypatch.setattr(K, "ga_generation_kernel", _broken(kind))
+    if kind.startswith("segment_"):
+        cls = B.BACKENDS[_config(cell)["backend"]]
+        monkeypatch.setattr(cls, "segment", _broken_segment(
+            kind[len("segment_"):], cls.segment))
+    else:
+        monkeypatch.setattr(K, "ga_generation_kernel", _broken(kind))
     res = _run(tiny_root, cell)
     assert not res["correct"], (kind, res["check"])
 

@@ -123,8 +123,14 @@ def test_every_name_resolves():
         path = ROOT / conf["file"]
         assert path.is_file() and path.is_relative_to(BENCH)
         data = json.loads(path.read_text())
-        assert data["reduced"] == conf["reduced"] == []
+        assert data["reduced"] == conf["reduced"]
+        for key in data["reduced"]:
+            assert key in data or key in data["spec"], (path, key)
         assert data["source"] == conf["source"]
+        for key, default in (("reference", "reference/plain.py"),
+                             ("work", "work.py")):
+            module = ROOT / data.get(key, f"gabench/{default}")
+            assert module.is_file() and module.is_relative_to(BENCH), module
         traffic = BENCH / "traffic" / f"{w['traffic']}.json"
         assert json.loads(traffic.read_text())["kind"] in ("jobs", "stream")
         assert w["name"] == f"{w['config']}.{w['traffic']}"

@@ -6,7 +6,6 @@ traced jobs run on the CPU that reports its span metrics."""
 
 import importlib.util
 import json
-import shutil
 import sys
 import time
 from pathlib import Path
@@ -21,6 +20,7 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 from gabench import program_spans as PS  # noqa: E402
 from gabench.harness import run_cell  # noqa: E402
+from gabench.reference import plain as P  # noqa: E402
 from repro_torch import trace as TR  # noqa: E402
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -206,18 +206,15 @@ def test_reader_reports_nothing_without_the_recorder(name, monkeypatch):
     assert mod.read(_rec(form, slice_t0_ms=1.0)) is None
 
 
-def test_traced_jobs_run_reports_its_span_metrics(tmp_path):
+def test_traced_jobs_run_reports_its_span_metrics(tmp_path, copy_bench):
     """A traced jobs run on the CPU at a tiny size: the recorder is turned
     on by the readers and the span metrics come out positive."""
-    for sub in ("traffic", "metrics"):
-        shutil.copytree(ROOT / "gabench" / sub, tmp_path / "gabench" / sub)
+    copy_bench(tmp_path)
     conf = json.loads((ROOT / "gabench/configs/cec17-rastrigin-d10.json")
                       .read_text())
-    conf["spec"].update(problem="rastrigin:4", n=16, n_repeats=3,
-                        generations=8, gens_per_epoch=4)
     path = tmp_path / "gabench/configs/cec17-rastrigin-d10.json"
     path.parent.mkdir(parents=True)
-    path.write_text(json.dumps(conf))
+    path.write_text(json.dumps(P.cpu_cut(conf)))
     TR.disable()
     res = run_cell(tmp_path, MANIFEST, "cec17-rastrigin-d10.jobs",
                    2 ** 31 + 5, 0.3, True, device="cpu",

@@ -50,10 +50,12 @@ def test_global_form_byte_bounds(kernel, problem, n, v, ms):
 
 def test_one_block_bytes_of_the_cells():
     assert W.one_block_bytes(D10) == 120264
-    assert W.launch_unit(D10, 32) == 32
+    assert W.launch_unit(D10, {"gens_per_epoch": 32}) == 32
+    assert W.form(D10) == "block"
     assert W.one_block_bytes(D100) > W.SMEM_LIMIT
-    assert W.launch_unit(D100, 1) == 1
-    assert W.launch_unit(D100, 8) == 1
+    assert W.launch_unit(D100, {"gens_per_epoch": 1}) == 1
+    assert W.launch_unit(D100, {"gens_per_epoch": 8}) == 1
+    assert W.form(D100) == "global"
 
 
 def test_d100_generation_is_bound_by_its_state_bytes():

@@ -9,6 +9,11 @@ a later change that fuses, splits or removes a kernel leaves them as they
 are.  The per-kernel counts (`island_ops`, `k1_bound`, `global_bounds`)
 are the ones the port's smoke script states its kernel bounds with,
 frozen here so that the yardstick cannot move with the program.
+
+A configuration file names its yardstick (`"work"`, this file where
+absent).  The harness asks it for `generations_bound`, `launch_unit`,
+`form` and `KERNELS`, and prints its `HBM_BYTES_PER_S` and `OPS_PER_S`
+beside the least time; this one knows K1 over one population a replica.
 """
 
 from __future__ import annotations
@@ -169,11 +174,23 @@ def one_block_bytes(shape) -> int:
     return rows if rows <= SMEM_LIMIT else base
 
 
-def launch_unit(shape, gens_per_epoch: int) -> int:
+# the GA's kernels, as the profiler's names for them contain them
+KERNELS = ("ga_generation", "ga_ffm", "ga_operators", "ga_best",
+           "ga_epoch", "ga_streamed_epoch")
+
+
+def form(shape) -> str:
+    """K1's form for these shapes: "block" where a block's shared memory
+    holds a replica, else "global"."""
+    return "block" if one_block_bytes(shape) <= SMEM_LIMIT else "global"
+
+
+def launch_unit(shape, spec: dict) -> int:
     """Generations a replica's state may stay on chip between one read and
-    one write of it: `gens_per_epoch` where a block's shared memory holds
-    the replica, else 1 (the state goes through HBM every generation)."""
-    return gens_per_epoch if one_block_bytes(shape) <= SMEM_LIMIT else 1
+    one write of it: the spec's `gens_per_epoch` where a block's shared
+    memory holds the replica, else 1 (the state goes through HBM every
+    generation)."""
+    return spec["gens_per_epoch"] if form(shape) == "block" else 1
 
 
 def generations_bound(shape, replicas: int, gens: int, unit: int,
