@@ -576,6 +576,7 @@ class IslandRingTopology(Topology):
         self.i_local = max(1, spec.n_islands // self.n_shards)
         self._shard_devices = (mesh.shard_devices(self._mesh_axes)
                                if mesh else None)
+        self.clock = SegmentClock(self.device)
         # planned per engine, not cached: cheap (the card's occupancy it
         # reads is cached in kernels.ga_step) and it follows the planner's
         # inputs wherever they change
@@ -954,27 +955,64 @@ class IslandRingTopology(Topology):
         trajectory sample a launch: the best over its intervals and
         islands, and the mean of its final fitness.  On a mesh the state is
         split onto the shards once, before the first launch, and gathered
-        once, after the last."""
+        once, after the last.
+
+        Traced, the segment is a `topology.segment` span (attribute `plan`,
+        counters `intervals` and `migrations`; off a mesh on a card also
+        `SegmentClock`'s timing events and launch counts), a
+        `topology.launch` span a runner call, and a `segment.result` span
+        around the read-back and the fold."""
         e = self.icfg.migrate_every
         epochs = max(1, math.ceil(gens / e))
-        r_, v, mini = self.spec.n_repeats, self.cfg.v, self.spec.minimize
+        mini = self.spec.minimize
         reduce = np.min if mini else np.max
+        migrations = epochs if self.spec.migration == "ring" else 0
         sched, unit = self._schedule(epochs)
         bys, bxs, tms = [], [], []
         a = self._island_dim()
-        shards = [state] if self.mesh is None else self._split(state)
-        for runner in sched:
-            shards, by, bx, tm = runner(shards)
-            bys.append(self._gather(by, a + 1))
-            bxs.append(self._gather(bx, a + 1))
-            tms.append(self._gather(tm, a))
-        state = shards[0] if self.mesh is None else self._gather_state(shards)
-        # one read-back for the whole segment
+        with TR.span("topology.segment", plan=self.plan["mode"]) as sp:
+            sp.count("intervals", epochs)
+            sp.count("migrations", migrations)
+            # on a mesh the launches run on several devices: no clock
+            mark = self.clock.start(sp and self.mesh is None, K.LAUNCHES)
+            shards = [state] if self.mesh is None else self._split(state)
+            for runner in sched:
+                with TR.span("topology.launch"):
+                    shards, by, bx, tm = runner(shards)
+                bys.append(self._gather(by, a + 1))
+                bxs.append(self._gather(bx, a + 1))
+                tms.append(self._gather(tm, a))
+            state = (shards[0] if self.mesh is None
+                     else self._gather_state(shards))
+            self.clock.stop(sp, mark, K.LAUNCHES)
+            with TR.span("segment.result"):
+                rep_y, rep_x, tb_rep, tm_rep = self._fold(
+                    bys, bxs, tms, len(sched))
+        r = _arg_best(rep_y, mini)
+        tele = RT.RunTelemetry(
+            plan=RT.PlanInfo.from_plan(self.plan),
+            topology=RT.TopologyInfo(
+                n_islands=self.icfg.n_islands, n_shards=self.n_shards,
+                sharded=self.mesh is not None, launches=len(sched),
+                migrations=migrations, telemetry_unit_gens=unit),
+            per_repeat=RT.ReplicaStats(best=rep_y, best_x=rep_x,
+                                       traj_best=tb_rep, traj_mean=tm_rep))
+        return Segment(state=state, best_y=float(rep_y[r]), best_x=rep_x[r],
+                       traj_best=reduce(tb_rep, axis=0),
+                       traj_mean=tm_rep.mean(axis=0), gens=epochs * e,
+                       telemetry=tele)
+
+    def _fold(self, bys, bxs, tms, launches: int):
+        """One read-back of a segment's per-interval island bests and
+        launch means, folded on the host: (best [R], best_x [R, V],
+        traj_best [R, launches], traj_mean [R, launches])."""
+        r_, v, mini = self.spec.n_repeats, self.cfg.v, self.spec.minimize
+        reduce = np.min if mini else np.max
         ends = np.cumsum([t.shape[0] for t in bys])
         by = torch.cat(bys).cpu().numpy().reshape(ends[-1], r_, -1)
         bx = convert.words_to_numpy(torch.cat(bxs)).reshape(
             ends[-1], r_, -1, v)
-        tm = torch.stack(tms).cpu().numpy().reshape(len(sched), r_, -1)
+        tm = torch.stack(tms).cpu().numpy().reshape(launches, r_, -1)
         rep_y = np.full((r_,), np.inf if mini else -np.inf, np.float32)
         rep_x = np.zeros((r_, v), np.uint32)
         rows = np.arange(r_)
@@ -988,20 +1026,7 @@ class IslandRingTopology(Topology):
                            zip(np.concatenate([[0], ends[:-1]]), ends)],
                           axis=1)                             # [R, launches]
         tm_rep = np.ascontiguousarray(tm.mean(axis=2).T)
-        r = _arg_best(rep_y, mini)
-        tele = RT.RunTelemetry(
-            plan=RT.PlanInfo.from_plan(self.plan),
-            topology=RT.TopologyInfo(
-                n_islands=self.icfg.n_islands, n_shards=self.n_shards,
-                sharded=self.mesh is not None, launches=len(sched),
-                migrations=(epochs if self.spec.migration == "ring" else 0),
-                telemetry_unit_gens=unit),
-            per_repeat=RT.ReplicaStats(best=rep_y, best_x=rep_x,
-                                       traj_best=tb_rep, traj_mean=tm_rep))
-        return Segment(state=state, best_y=float(rep_y[r]), best_x=rep_x[r],
-                       traj_best=reduce(tb_rep, axis=0),
-                       traj_mean=tm_rep.mean(axis=0), gens=epochs * e,
-                       telemetry=tele)
+        return rep_y, rep_x, tb_rep, tm_rep
 
 
 TOPOLOGIES: Dict[str, type] = {

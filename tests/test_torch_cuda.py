@@ -451,6 +451,24 @@ def test_epoch_kernel_matches_plain(cuda_device, problem, n, mode, islands,
 
 
 @pytest.mark.cuda
+def test_epoch_kernel_matches_plain_at_the_island_cell(cuda_device):
+    """K2 at the benchmark's island cell: 51 groups of 8 islands (51
+    clusters, past the card's clusters at once), N=256, rastrigin:30, 16
+    bits, two intervals of 16 generations; every output bit for bit."""
+    prog = TF.compile_program(problem="rastrigin:30", bits_per_var=16)
+    cfg = TG.GAConfig(n=256, c=16, v=30, mutation_rate=0.02, seed=3,
+                      minimize=True, mode="arith", sel_lane="gather")
+    args = _island_groups(cfg, 51, 8, cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=16, intervals=2)
+    got = K.ga_epoch_kernel(*args, **kw)
+    want = K.ga_epoch_plain(*args, **kw)
+    assert got[5].shape == (2, 51, 8)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        assert torch.equal(a, b), f"output {i}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("minimize", [True, False])
 @pytest.mark.parametrize("tile", [1, 2])
 @pytest.mark.parametrize("problem,n", EPOCH_SHAPES)

@@ -1,0 +1,173 @@
+"""The island ring's spans (`IslandRingTopology.segment`): a
+`topology.segment` span under each run or chunk with the plan's mode and
+its intervals and migrations, a `topology.launch` span a runner call, a
+`segment.result` span around the read-back and the fold; on a mesh the
+same spans without timing events; no result changes with the recorder
+on.  The `cuda` case holds the segment's launch counters and timing
+events on the card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_trace_islands.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import ga
+from repro_torch import trace as TR
+from repro_torch.kernels import ga_step as K
+from repro_torch.launch.mesh import Mesh
+
+CPU = ga.EngineOptions(device="cpu", cost_table=False, faults=False)
+# 16 generations: 8 intervals of 2, 4 resident launches of 2 intervals
+SPEC = ga.GASpec(problem="rastrigin:3", n=16, bits_per_var=10, mode="arith",
+                 generations=16, n_repeats=2, n_islands=4, migrate_every=2,
+                 gens_per_epoch=4, seed=7)
+
+
+@pytest.fixture(autouse=True)
+def _recorder(monkeypatch):
+    """Each test starts and ends with the recorder off and empty, and no
+    ambient cost table moves a plan."""
+    monkeypatch.setenv("REPRO_GA_COST_TABLE", "off")
+    TR.disable()
+    TR.clear()
+    yield
+    TR.disable()
+    TR.clear()
+
+
+def _by_name(recs):
+    out = {}
+    for r in recs:
+        out.setdefault(r["name"], []).append(r)
+    return out
+
+
+@pytest.mark.parametrize("backend,plan,launches", [
+    ("fused-islands", "resident", 2), ("islands", "gridded", 4)])
+def test_segment_spans_follow_the_chunks(backend, plan, launches):
+    """Two chunks of 8 generations: each chunk's segment holds its plan,
+    its 4 intervals and migrations, a launch span a runner call and one
+    result span, under the chunk's run id."""
+    TR.enable()
+    eng = ga.Engine(SPEC, backend, options=CPU)
+    teles = list(eng.run_chunked(chunk_generations=8))
+    recs = TR.records()
+    names = _by_name(recs)
+    ids = {r["id"]: r for r in recs}
+    e = eng.trace_run
+    segs = names["topology.segment"]
+    assert [r["run"] for r in segs] == [(e, 1), (e, 2)]
+    assert [ids[r["parent"]]["name"] for r in segs] == ["engine.chunk"] * 2
+    for seg, tele in zip(segs, teles):
+        topo = tele["telemetry"].topology
+        assert seg["attrs"] == {"plan": plan, "intervals": 4,
+                                "migrations": topo.migrations}
+        assert topo.migrations == 4 and topo.launches == launches
+        assert tele["telemetry"].plan.mode == plan
+    seg_ids = [r["id"] for r in segs]
+    for name, each in (("topology.launch", launches), ("segment.result", 1)):
+        under = [r["parent"] for r in names[name]]
+        assert under == [i for i in seg_ids for _ in range(each)], name
+        assert [r["run"] for r in names[name]] == [
+            (e, c) for c in (1, 2) for _ in range(each)]
+    for r in recs:
+        if r["parent"]:
+            up = ids[r["parent"]]
+            assert up["t0"] <= r["t0"] and r["t1"] <= up["t1"]
+    # on the CPU no timing events
+    assert "segment.wait" not in names
+
+
+def test_without_a_ring_the_segment_counts_no_migrations():
+    spec = dataclasses.replace(SPEC, migration="none")
+    TR.enable()
+    res = ga.solve(spec, "fused-islands", options=CPU)
+    (seg,) = _by_name(TR.records())["topology.segment"]
+    assert res.telemetry.topology.migrations == 0
+    assert seg["attrs"] == {"plan": res.telemetry.plan.mode,
+                            "intervals": 8, "migrations": 0}
+
+
+def test_a_mesh_records_the_spans_without_timing_events():
+    mesh = Mesh([torch.device("cpu")] * 2, ("islands",))
+    opts = ga.EngineOptions(mesh=mesh, cost_table=False, faults=False)
+    TR.enable()
+    res = ga.solve(SPEC, "fused-islands", options=opts)
+    names = _by_name(TR.records())
+    (seg,) = names["topology.segment"]
+    assert res.telemetry.plan.mode == "resident-sharded"
+    assert seg["attrs"] == {"plan": "resident-sharded", "intervals": 8,
+                            "migrations": 8}
+    assert len(names["topology.launch"]) == res.telemetry.topology.launches
+    assert len(names["segment.result"]) == 1
+    assert "segment.wait" not in names
+
+
+def _words(state):
+    return [leaf.cpu().numpy() for leaf in state]
+
+
+@pytest.mark.parametrize("backend", ["fused-islands", "islands"])
+def test_results_are_bit_equal_on_and_off(backend):
+    def both():
+        res = ga.solve(SPEC, backend, options=CPU)
+        eng = ga.Engine(SPEC, backend, options=CPU)
+        return res, list(eng.run_chunked(chunk_generations=8))
+
+    off_res, off_chunks = both()
+    TR.enable()
+    on_res, on_chunks = both()
+    assert TR.records()
+    for a, b in zip(_words(off_res.state), _words(on_res.state)):
+        np.testing.assert_array_equal(a, b)
+    pairs = [(off_res.telemetry.per_repeat, on_res.telemetry.per_repeat)]
+    pairs += [(a["telemetry"].per_repeat, b["telemetry"].per_repeat)
+              for a, b in zip(off_chunks, on_chunks)]
+    assert len(pairs) == 3
+    for ra, rb in pairs:
+        for name in ("best", "best_x", "traj_best", "traj_mean"):
+            np.testing.assert_array_equal(getattr(ra, name),
+                                          getattr(rb, name))
+    assert off_res.best_fitness == on_res.best_fitness
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_island_segment_counts_and_times_on_the_card(cuda_device):
+    """A resident segment's `kernel_launches.ga_epoch` is the `LAUNCHES`
+    delta over it, one `topology.launch` span a K2 call, and its timing
+    events give non-negative `device_ms` and, after the first segment,
+    `gap_before_ms`."""
+    spec = ga.GASpec(problem="rastrigin:30", n=256, bits_per_var=16,
+                     mode="arith", mutation_rate=0.02, generations=192,
+                     n_repeats=4, n_islands=8, migrate_every=16,
+                     gens_per_epoch=32, seed=11)
+    opts = ga.EngineOptions(device="cuda", cost_table=False, faults=False)
+    eng = ga.Engine(spec, "fused-islands", options=opts)
+    TR.enable()
+    before = dict(K.LAUNCHES)
+    teles = list(eng.run_chunked(chunk_generations=64))
+    delta = {k: v - before[k] for k, v in K.LAUNCHES.items()
+             if v != before[k]}
+    names = _by_name(TR.records())
+    segs = names["topology.segment"]
+    assert len(segs) == len(teles) == 3
+    assert delta == {"ga_epoch": 6}
+    for i, s in enumerate(segs):
+        assert s["attrs"]["plan"] == "resident"
+        assert s["attrs"]["kernel_launches.ga_epoch"] == 2
+        assert s["attrs"]["migrations"] == 4
+        assert s["attrs"]["device_ms"] >= 0
+        assert ("gap_before_ms" in s["attrs"]) == (i > 0)
+    assert len(names["topology.launch"]) == 6
+    assert len(names["segment.wait"]) == 3
