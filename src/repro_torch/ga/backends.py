@@ -957,11 +957,17 @@ class IslandRingTopology(Topology):
         split onto the shards once, before the first launch, and gathered
         once, after the last.
 
+        The fold runs where the bests lie (`fold_island_bests`), enqueued
+        after the last launch and before the segment's wait, so the host
+        reads back only its result.
+
         Traced, the segment is a `topology.segment` span (attribute `plan`,
         counters `intervals` and `migrations`; off a mesh on a card also
         `SegmentClock`'s timing events and launch counts), a
-        `topology.launch` span a runner call, and a `segment.result` span
-        around the read-back and the fold."""
+        `topology.launch` span a runner call, a `segment.fold` span around
+        the fold's enqueue (counter `intervals_folded`), and a
+        `segment.result` span around the read-back and what is left on the
+        host (counter `readback_bytes`)."""
         e = self.icfg.migrate_every
         epochs = max(1, math.ceil(gens / e))
         mini = self.spec.minimize
@@ -984,10 +990,16 @@ class IslandRingTopology(Topology):
                 tms.append(self._gather(tm, a))
             state = (shards[0] if self.mesh is None
                      else self._gather_state(shards))
+            with TR.span("segment.fold") as fp:
+                fp.count("intervals_folded", sum(t.shape[0] for t in bys))
+                words = fold_island_bests(bys, bxs, tms, self.spec.n_repeats,
+                                          mini)
             self.clock.stop(sp, mark, K.LAUNCHES)
-            with TR.span("segment.result"):
-                rep_y, rep_x, tb_rep, tm_rep = self._fold(
-                    bys, bxs, tms, len(sched))
+            with TR.span("segment.result") as rp:
+                host = convert.words_to_numpy(words)
+                rp.count("readback_bytes", host.nbytes)
+                rep_y, rep_x, tb_rep, tm_rep = unpack_island_fold(
+                    host, self.spec.n_repeats, self.cfg.v, len(sched))
         r = _arg_best(rep_y, mini)
         tele = RT.RunTelemetry(
             plan=RT.PlanInfo.from_plan(self.plan),
@@ -1002,31 +1014,60 @@ class IslandRingTopology(Topology):
                        traj_mean=tm_rep.mean(axis=0), gens=epochs * e,
                        telemetry=tele)
 
-    def _fold(self, bys, bxs, tms, launches: int):
-        """One read-back of a segment's per-interval island bests and
-        launch means, folded on the host: (best [R], best_x [R, V],
-        traj_best [R, launches], traj_mean [R, launches])."""
-        r_, v, mini = self.spec.n_repeats, self.cfg.v, self.spec.minimize
-        reduce = np.min if mini else np.max
-        ends = np.cumsum([t.shape[0] for t in bys])
-        by = torch.cat(bys).cpu().numpy().reshape(ends[-1], r_, -1)
-        bx = convert.words_to_numpy(torch.cat(bxs)).reshape(
-            ends[-1], r_, -1, v)
-        tm = torch.stack(tms).cpu().numpy().reshape(launches, r_, -1)
-        rep_y = np.full((r_,), np.inf if mini else -np.inf, np.float32)
-        rep_x = np.zeros((r_, v), np.uint32)
-        rows = np.arange(r_)
-        for t in range(ends[-1]):
-            i = np.argmin(by[t], axis=1) if mini else np.argmax(by[t], axis=1)
-            ep_y, ep_x = by[t][rows, i], bx[t][rows, i]
-            better = ep_y < rep_y if mini else ep_y > rep_y
-            rep_y = np.where(better, ep_y, rep_y)
-            rep_x = np.where(better[:, None], ep_x, rep_x)
-        tb_rep = np.stack([reduce(by[a:b], axis=(0, 2)) for a, b in
-                           zip(np.concatenate([[0], ends[:-1]]), ends)],
-                          axis=1)                             # [R, launches]
-        tm_rep = np.ascontiguousarray(tm.mean(axis=2).T)
-        return rep_y, rep_x, tb_rep, tm_rep
+
+def fold_island_bests(bys, bxs, tms, n_repeats: int,
+                      minimize: bool) -> torch.Tensor:
+    """A segment's per-interval island bests folded on their device, as
+    `islands` samples them, into one int32 tensor for one read-back
+    (`unpack_island_fold`).
+
+    `bys` [K, R?, I] f32, `bxs` [K, R?, I, V] int32 and `tms` [R?, I, ...]
+    f32 (a gridded launch's means a generation) hold a launch each.  Per interval the first island at the extreme (NaN
+    counts as one, as NumPy's argmin counts it); across intervals the
+    earliest strict improvement on +-inf, so an interval whose pick is NaN
+    gives nothing and a replica nothing improves keeps +-inf and zeros.
+    One trajectory sample a launch: the extreme over its intervals and
+    islands, NaN propagating.  The words are the launch means [L, R, -1]
+    first, then best [R], best_x [R, V] and traj_best [L, R]."""
+    sizes = [t.shape[0] for t in bys]
+    by = torch.cat(bys).reshape(sum(sizes), n_repeats, -1)      # [T, R, I]
+    bx = torch.cat(bxs).reshape(by.shape + (-1,))                # [.., V]
+    tm = torch.stack(tms).reshape(len(tms), n_repeats, -1)      # [L, R, I]
+    arg, red = ((torch.argmin, torch.amin) if minimize
+                else (torch.argmax, torch.amax))
+    worst = math.inf if minimize else -math.inf
+    isl = arg(by, dim=2)                                         # [T, R]
+    ep = by.gather(2, isl.unsqueeze(2)).squeeze(2)
+    t = arg(ep.masked_fill(ep.isnan(), worst), dim=0)            # [R]
+    rows = torch.arange(n_repeats, device=by.device)
+    y = ep[t, rows]
+    found = y < worst if minimize else y > worst
+    best = torch.where(found, y, worst)
+    best_x = torch.where(found.unsqueeze(1), bx[t, rows, isl[t, rows]], 0)
+    # all launches but the last hold sizes[0] intervals
+    head = sizes[0] * (len(sizes) - 1)
+    tb = torch.cat([
+        red(by[:head].reshape(-1, sizes[0], *by.shape[1:]), dim=(1, 3)),
+        red(by[head:], dim=(0, 2)).unsqueeze(0)])                # [L, R]
+    return torch.cat([tm.view(torch.int32).reshape(-1),
+                      best.view(torch.int32), best_x.reshape(-1),
+                      tb.view(torch.int32).reshape(-1)])
+
+
+def unpack_island_fold(words: np.ndarray, n_repeats: int, v: int,
+                       launches: int):
+    """`fold_island_bests`' words (np.uint32, on the host) -> (best [R],
+    best_x [R, V] uint32, traj_best [R, L], traj_mean [R, L]); traj_mean
+    is the launch means' float32 NumPy mean over the islands."""
+    r_ = n_repeats
+    f = words.view(np.float32)
+    n_tm = words.size - r_ - r_ * v - launches * r_
+    tm = f[:n_tm].reshape(launches, r_, -1)
+    rep_y = f[n_tm:n_tm + r_]
+    rep_x = words[n_tm + r_:n_tm + r_ + r_ * v].reshape(r_, v)
+    tb = f[n_tm + r_ + r_ * v:].reshape(launches, r_)
+    return (rep_y, rep_x, np.ascontiguousarray(tb.T),
+            np.ascontiguousarray(tm.mean(axis=2).T))
 
 
 TOPOLOGIES: Dict[str, type] = {

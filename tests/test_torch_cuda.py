@@ -28,6 +28,8 @@ from repro_torch.core import ga as TG  # noqa: E402
 from repro_torch.core import islands as TISL  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
 from repro_torch.kernels import lfsr_kernel as K4  # noqa: E402
+from test_torch_island_fold import (CASES, assert_same_bits,  # noqa: E402
+                                    device_fold, planted_bests, twin_fold)
 from test_torch_seed_state import ZERO_WORDS  # noqa: E402
 
 
@@ -466,6 +468,71 @@ def test_epoch_kernel_matches_plain_at_the_island_cell(cuda_device):
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape, i
         assert torch.equal(a, b), f"output {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minimize", [True, False])
+@pytest.mark.parametrize("case", CASES)
+def test_island_fold_on_card_matches_the_host_loop(cuda_device, case,
+                                                   minimize):
+    """The island ring's segment fold on the card at the island cell's
+    shape (51 replicas x 8 islands, V=30, a chunk of 1024 generations: 64
+    intervals in 32 launches), planted ties, NaN and +-inf, against the
+    host loop it replaced, bit for bit: torch.argmin's and amin's tie and
+    NaN rules on CUDA are NumPy's."""
+    sizes = (2,) * 32
+    bys, bxs, tms = planted_bests(case, 51, 8, 30, sizes, minimize, seed=9,
+                                  device=cuda_device)
+    got, nbytes = device_fold(bys, bxs, tms, 51, 30, minimize)
+    assert_same_bits(got, twin_fold(bys, bxs, tms, 32, 51, 30, minimize))
+    assert nbytes == 65076
+
+
+@pytest.mark.cuda
+def test_island_cell_segment_folds_on_the_card(cuda_device, monkeypatch):
+    """A chunk of the island cell's spec on the card: the segment's
+    fields equal the host loop's fold of the bests the segment folded,
+    one `segment.fold` span before the wait, and the boundary reads back
+    at most 70,000 bytes (`segment.result`'s `readback_bytes`)."""
+    from repro_torch import trace as TR
+    from repro_torch.ga import backends as B
+
+    spec = ga.GASpec(problem="rastrigin:30", n=256, bits_per_var=16,
+                     mode="arith", mutation_rate=0.02, generations=1024,
+                     n_repeats=51, n_islands=8, migrate_every=16,
+                     gens_per_epoch=32, seed=17)
+    opts = ga.EngineOptions(device="cuda", cost_table=False, faults=False)
+    seen = []
+    real = B.fold_island_bests
+
+    def keep(bys, bxs, tms, r_, mini):
+        seen.append((list(bys), list(bxs), list(tms)))
+        return real(bys, bxs, tms, r_, mini)
+
+    monkeypatch.setattr(B, "fold_island_bests", keep)
+    eng = ga.Engine(spec, "fused-islands", options=opts)
+    TR.disable()
+    TR.clear()
+    TR.enable()
+    try:
+        (tele,) = list(eng.run_chunked(chunk_generations=1024))
+        recs = TR.records()
+    finally:
+        TR.disable()
+        TR.clear()
+    per = tele["telemetry"].per_repeat
+    (bys, bxs, tms), = seen
+    assert len(bys) == 32 and tele["telemetry"].plan.mode == "resident"
+    assert_same_bits((per.best, per.best_x, per.traj_best, per.traj_mean),
+                     twin_fold(bys, bxs, tms, 32, 51, 30, True))
+    by_name = {}
+    for r in recs:
+        by_name.setdefault(r["name"], []).append(r)
+    (fold,), (wait,), (res,) = (by_name[n] for n in (
+        "segment.fold", "segment.wait", "segment.result"))
+    assert fold["attrs"] == {"intervals_folded": 64}
+    assert fold["t1"] <= wait["t0"] and wait["t1"] <= res["t0"]
+    assert res["attrs"]["readback_bytes"] <= 70000
 
 
 @pytest.mark.cuda

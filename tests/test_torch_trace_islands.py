@@ -1,7 +1,9 @@
 """The island ring's spans (`IslandRingTopology.segment`): a
 `topology.segment` span under each run or chunk with the plan's mode and
 its intervals and migrations, a `topology.launch` span a runner call, a
-`segment.result` span around the read-back and the fold; on a mesh the
+`segment.fold` span around the fold's enqueue after the last launch
+(counter `intervals_folded`), a `segment.result` span around the
+read-back (counter `readback_bytes`); on a mesh the
 same spans without timing events; no result changes with the recorder
 on.  The `cuda` case holds the segment's launch counters and timing
 events on the card:
@@ -46,12 +48,20 @@ def _by_name(recs):
     return out
 
 
+# bytes read back a chunk: launch means [L, R, I * samples a launch], best
+# [R], best_x [R, V], traj_best [L, R] (R 2, I 4, V 3); a gridded launch's
+# means are its 2 generations'
+READBACK = {"resident": 4 * (2 * 8 + 2 + 6 + 2 * 2),
+            "gridded": 4 * (4 * 16 + 2 + 6 + 4 * 2)}
+
+
 @pytest.mark.parametrize("backend,plan,launches", [
     ("fused-islands", "resident", 2), ("islands", "gridded", 4)])
 def test_segment_spans_follow_the_chunks(backend, plan, launches):
     """Two chunks of 8 generations: each chunk's segment holds its plan,
-    its 4 intervals and migrations, a launch span a runner call and one
-    result span, under the chunk's run id."""
+    its 4 intervals and migrations, a launch span a runner call, one fold
+    span after the last launch and one result span, under the chunk's run
+    id."""
     TR.enable()
     eng = ga.Engine(SPEC, backend, options=CPU)
     teles = list(eng.run_chunked(chunk_generations=8))
@@ -69,11 +79,21 @@ def test_segment_spans_follow_the_chunks(backend, plan, launches):
         assert topo.migrations == 4 and topo.launches == launches
         assert tele["telemetry"].plan.mode == plan
     seg_ids = [r["id"] for r in segs]
-    for name, each in (("topology.launch", launches), ("segment.result", 1)):
+    for name, each in (("topology.launch", launches), ("segment.fold", 1),
+                       ("segment.result", 1)):
         under = [r["parent"] for r in names[name]]
         assert under == [i for i in seg_ids for _ in range(each)], name
         assert [r["run"] for r in names[name]] == [
             (e, c) for c in (1, 2) for _ in range(each)]
+    # the fold is enqueued after the last launch, before the read-back
+    for seg, fold, res in zip(segs, names["segment.fold"],
+                              names["segment.result"]):
+        assert fold["attrs"] == {"intervals_folded":
+                                 seg["attrs"]["intervals"]}
+        last = max(r["t1"] for r in names["topology.launch"]
+                   if r["parent"] == seg["id"])
+        assert last <= fold["t0"] and fold["t1"] <= res["t0"]
+        assert res["attrs"] == {"readback_bytes": READBACK[plan]}
     for r in recs:
         if r["parent"]:
             up = ids[r["parent"]]
@@ -104,6 +124,9 @@ def test_a_mesh_records_the_spans_without_timing_events():
                             "migrations": 8}
     assert len(names["topology.launch"]) == res.telemetry.topology.launches
     assert len(names["segment.result"]) == 1
+    (fold,) = names["segment.fold"]
+    assert fold["parent"] == seg["id"]
+    assert fold["attrs"] == {"intervals_folded": 8}
     assert "segment.wait" not in names
 
 
@@ -171,3 +194,10 @@ def test_island_segment_counts_and_times_on_the_card(cuda_device):
         assert ("gap_before_ms" in s["attrs"]) == (i > 0)
     assert len(names["topology.launch"]) == 6
     assert len(names["segment.wait"]) == 3
+    # one fold a segment, enqueued before the segment's wait
+    for s, fold, wait, res in zip(segs, names["segment.fold"],
+                                  names["segment.wait"],
+                                  names["segment.result"]):
+        assert fold["parent"] == wait["parent"] == res["parent"] == s["id"]
+        assert fold["attrs"] == {"intervals_folded": 4}
+        assert fold["t1"] <= wait["t0"] and wait["t1"] <= res["t0"]
