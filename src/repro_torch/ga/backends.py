@@ -51,6 +51,10 @@ string or None), `init()` (backend-native state), `init_packed(seeds)` (one
 replica slot per seed, for job packing) and `segment(state, gens)`
 (advance `gens` generations, returning the new state + telemetry).
 
+Both topologies hand a segment's result to the host one way: packed on
+its device into one int32 tensor before the wait (`pack_segment`), read
+back once (`read_segment`), made a `Segment` on the host (`build_segment`).
+
 What a backend builds for a spec shape — the executor with its compiled
 FitnessProgram and the runner closures of each launch shape — comes from
 the process-wide `ga.RUNNER_CACHE`, so a second engine of the same shape
@@ -83,8 +87,10 @@ from repro_torch.kernels import ga_step as K
 
 @dataclasses.dataclass
 class Segment:
-    """One contiguous block of generations (raw fitness units); traj arrays
-    have one entry per trajectory sample (see `Executor`)."""
+    """One contiguous block of generations (raw fitness units): the best
+    replica's best_y and best_x, and a sample's extreme (traj_best) and mean
+    (traj_mean) over the replicas, whose own arrays are
+    `telemetry.per_repeat` (None for one unstacked population)."""
 
     state: Any
     best_y: float
@@ -195,11 +201,12 @@ class Executor:
     where best_* track the best individual seen across the block and traj_*
     are population best/mean per trajectory sample (fitness of the
     pre-update population).  T is one entry per generation, except the
-    fused executor with `gens_per_epoch > 1` where it is one per launch.
+    fused executor with `gens_per_epoch > 1` where it is one per launch
+    (`launch_sample`).  The reference block also takes no leading axis.
     """
 
     name = "?"
-    stacked_only = True    # False -> also offers an unstacked solo path
+    stacked_only = True    # False -> init keeps a lone population unstacked
 
     def __init__(self, spec: GASpec):
         self.spec = spec
@@ -235,25 +242,14 @@ class ReferenceExecutor(Executor):
                     "(jit_fitness=False); use 'eager'")
         return None
 
-    def solo(self, gens: int):
-        """Single-population runner (GARun); also takes a replica stack."""
-        return lambda st: G.run_scan(self.cfg, self.fit, gens, st,
-                                     self.gen_fn)
-
     def block(self, gens: int):
-        one = self.solo(gens)
-
-        def run_block(states: G.GAState):
-            out = one(states)
-            return (out.state, out.best_y, out.best_x,
-                    out.traj_best, out.traj_mean)
-
-        return run_block
+        # a GARun is the block's tuple, in its order
+        return lambda states: G.run_scan(self.cfg, self.fit, gens, states,
+                                         self.gen_fn)
 
 
 class FusedExecutor(Executor):
     name = "fused"
-    stacked_only = True
 
     def __init__(self, spec: GASpec):
         super().__init__(spec)
@@ -295,17 +291,16 @@ class FusedExecutor(Executor):
             by = torch.full((L,), math.inf if mini else -math.inf,
                             dtype=torch.float32, device=dev)
             bx = torch.zeros((L, cfg.v), dtype=torch.int32, device=dev)
-            tbs, tms = [], []
+            samples = []
             for g in plan:
                 with TR.span("executor.launch"):
                     x, sel, cross, mut, y, lby, lbx = K.ga_generation_kernel(
                         x, sel, cross, mut, cfg=cfg, program=prog, gens=g,
                         track_best=True)
                     by, bx = G.fold_best(by, bx, lby, lbx, mini)
-                    tbs.append(torch.amin(y, dim=-1) if mini
-                               else torch.amax(y, dim=-1))
-                    tms.append(torch.mean(y, dim=-1))
+                    samples.append(launch_sample(y, mini))
             state = G.GAState(x, sel, cross, mut, states.k + gens)
+            tbs, tms = zip(*samples)
             return (state, by, bx, torch.stack(tbs, dim=-1),
                     torch.stack(tms, dim=-1))
 
@@ -352,6 +347,7 @@ class Topology:
         self.smem_budget = smem_budget
         self.stream_tile_islands = stream_tile_islands
         self._cache: Dict[Any, Any] = {}   # instance memo over RUNNER_CACHE
+        self.clock = SegmentClock(device)
 
     def _cached_runner(self, builder, *parts):
         """Instance memo in front of the process-global RUNNER_CACHE, so the
@@ -428,13 +424,12 @@ class SegmentClock:
 
 class SingleTopology(Topology):
     """One population; `n_repeats` independent replicas ride the executor's
-    stack axis.  A segment is exactly one executor block."""
+    stack axis.  A segment is exactly one executor block; its result is
+    packed as one interval of one island.  Traced: `topology.segment` (on a
+    card `SegmentClock`'s events and counts) around `executor.launch`,
+    `segment.fold` (the pack's enqueue), `segment.wait`, `segment.result`."""
 
     name = "single"
-
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
-        self.clock = SegmentClock(self.device)
 
     @staticmethod
     def supports(spec: GASpec, mesh=None) -> Optional[str]:
@@ -447,11 +442,8 @@ class SingleTopology(Topology):
                     "(n_islands > 1)")
         return None
 
-    def _solo(self) -> bool:
-        return self.spec.n_repeats == 1 and not self.executor.stacked_only
-
     def init(self):
-        if self._solo():
+        if self.spec.n_repeats == 1 and not self.executor.stacked_only:
             return G.init_state(self.cfg, device=self.device)
         return _stack_states(self.cfg, self.spec.n_repeats, self.device)
 
@@ -459,38 +451,23 @@ class SingleTopology(Topology):
         _check_seeds(seeds, self.spec.n_repeats)
         return G.init_states(self.cfg, list(seeds), device=self.device)
 
-    def _runner(self, gens: int, solo: bool):
-        return self._cached_runner(
-            lambda: (self.executor.solo(gens) if solo
-                     else self.executor.block(gens)), "block", gens, solo)
+    def _runner(self, gens: int):
+        return self._cached_runner(lambda: self.executor.block(gens),
+                                   "block", gens)
 
     def segment(self, state, gens: int) -> Segment:
-        mini = self.spec.minimize
-        tele = RT.RunTelemetry()
-        tele.topology.launches = self.executor.launches(gens)
-        if self._solo():
-            out: G.GARun = self._runner(gens, True)(state)
-            return Segment(state=out.state, best_y=float(out.best_y),
-                           best_x=convert.words_to_numpy(out.best_x),
-                           traj_best=out.traj_best.cpu().numpy(),
-                           traj_mean=out.traj_mean.cpu().numpy(), gens=gens,
-                           telemetry=tele)
         with TR.span("topology.segment") as sp:
             mark = self.clock.start(sp, K.LAUNCHES)
-            state, by, bx, tb, tm = self._runner(gens, False)(state)
+            state, by, bx, tb, tm = self._runner(gens)(state)
+            with TR.span("segment.fold"):
+                words = pack_segment(by, bx, tb, tm)
             self.clock.stop(sp, mark, K.LAUNCHES)
-            with TR.span("segment.result"):
-                per_rep = by.cpu().numpy()                     # [R]
-                bx = convert.words_to_numpy(bx)                # [R, V]
-                tb, tm = tb.cpu().numpy(), tm.cpu().numpy()    # [R, T]
-                r = _arg_best(per_rep, mini)
-                reduce = np.min if mini else np.max
-                best_tb, mean_tm = reduce(tb, axis=0), tm.mean(axis=0)
-        tele.per_repeat = RT.ReplicaStats(best=per_rep, best_x=bx,
-                                          traj_best=tb, traj_mean=tm)
-        return Segment(state=state, best_y=float(per_rep[r]),
-                       best_x=bx[r], traj_best=best_tb, traj_mean=mean_tm,
-                       gens=gens, telemetry=tele)
+            rep = read_segment(words, self.spec.n_repeats, self.cfg.v,
+                               tb.shape[-1])
+        tele = RT.RunTelemetry()
+        tele.topology.launches = self.executor.launches(gens)
+        return build_segment(state, gens, *rep, minimize=self.spec.minimize,
+                             telemetry=tele, stacked=state.x.dim() > 2)
 
 
 class IslandRingTopology(Topology):
@@ -562,13 +539,9 @@ class IslandRingTopology(Topology):
 
     name = "island_ring"
 
-    def __init__(self, spec: GASpec, executor: Executor, *, device,
-                 mesh=None, cost_table=None, plan_override=None,
-                 smem_budget=None, stream_tile_islands=None):
-        super().__init__(spec, executor, device=device, mesh=mesh,
-                         cost_table=cost_table, plan_override=plan_override,
-                         smem_budget=smem_budget,
-                         stream_tile_islands=stream_tile_islands)
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        spec, mesh = self.spec, self.mesh
         self.icfg = ISL.IslandConfig(ga=self.cfg, n_islands=spec.n_islands,
                                      migrate_every=spec.migrate_every)
         self._mesh_axes = _mesh_axes(spec, mesh)
@@ -576,7 +549,6 @@ class IslandRingTopology(Topology):
         self.i_local = max(1, spec.n_islands // self.n_shards)
         self._shard_devices = (mesh.shard_devices(self._mesh_axes)
                                if mesh else None)
-        self.clock = SegmentClock(self.device)
         # planned per engine, not cached: cheap (the card's occupancy it
         # reads is cached in kernels.ga_step) and it follows the planner's
         # inputs wherever they change
@@ -765,7 +737,7 @@ class IslandRingTopology(Topology):
             state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
                               states.k + e * intervals)
             return ([state], [sq(by, 1)], [sq(bx, 1)],
-                    [sq(torch.mean(y, dim=-1))])
+                    [sq(launch_sample(y)[1])])
 
         return launch
 
@@ -786,7 +758,7 @@ class IslandRingTopology(Topology):
             state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
                               states.k + k * e)
             return ([state], [sq(by, 1)], [sq(bx, 1)],
-                    [sq(torch.mean(y, dim=-1))])
+                    [sq(launch_sample(y)[1])])
 
         return launch
 
@@ -863,7 +835,7 @@ class IslandRingTopology(Topology):
                                      s.k + e))
                 bys.append(sq(by, 1))
                 bxs.append(sq(bx, 1))
-                tms.append(sq(torch.mean(y, dim=-1)))
+                tms.append(sq(launch_sample(y)[1]))
             return new, bys, bxs, tms
 
         return launch
@@ -902,7 +874,7 @@ class IslandRingTopology(Topology):
                    for g, s in zip(gs, shards)]
             return (new, [sq(torch.stack(b), 1) for b in bys],
                     [sq(torch.stack(b), 1) for b in bxs],
-                    [sq(torch.mean(o[4], dim=-1)) for o in outs])
+                    [sq(launch_sample(o[4])[1]) for o in outs])
 
         return launch
 
@@ -957,21 +929,18 @@ class IslandRingTopology(Topology):
         split onto the shards once, before the first launch, and gathered
         once, after the last.
 
-        The fold runs where the bests lie (`fold_island_bests`), enqueued
-        after the last launch and before the segment's wait, so the host
-        reads back only its result.
+        The fold runs on the bests' device (`fold_island_bests`) before
+        the segment's wait; the host reads its packed result back once.
 
         Traced, the segment is a `topology.segment` span (attribute `plan`,
         counters `intervals` and `migrations`; off a mesh on a card also
         `SegmentClock`'s timing events and launch counts), a
         `topology.launch` span a runner call, a `segment.fold` span around
-        the fold's enqueue (counter `intervals_folded`), and a
-        `segment.result` span around the read-back and what is left on the
-        host (counter `readback_bytes`)."""
+        the fold's enqueue (counter `intervals_folded`), `segment.wait`
+        and `segment.result` (`read_segment`)."""
         e = self.icfg.migrate_every
         epochs = max(1, math.ceil(gens / e))
         mini = self.spec.minimize
-        reduce = np.min if mini else np.max
         migrations = epochs if self.spec.migration == "ring" else 0
         sched, unit = self._schedule(epochs)
         bys, bxs, tms = [], [], []
@@ -995,44 +964,35 @@ class IslandRingTopology(Topology):
                 words = fold_island_bests(bys, bxs, tms, self.spec.n_repeats,
                                           mini)
             self.clock.stop(sp, mark, K.LAUNCHES)
-            with TR.span("segment.result") as rp:
-                host = convert.words_to_numpy(words)
-                rp.count("readback_bytes", host.nbytes)
-                rep_y, rep_x, tb_rep, tm_rep = unpack_island_fold(
-                    host, self.spec.n_repeats, self.cfg.v, len(sched))
-        r = _arg_best(rep_y, mini)
+            rep = read_segment(words, self.spec.n_repeats, self.cfg.v,
+                               len(sched))
         tele = RT.RunTelemetry(
             plan=RT.PlanInfo.from_plan(self.plan),
             topology=RT.TopologyInfo(
                 n_islands=self.icfg.n_islands, n_shards=self.n_shards,
                 sharded=self.mesh is not None, launches=len(sched),
-                migrations=migrations, telemetry_unit_gens=unit),
-            per_repeat=RT.ReplicaStats(best=rep_y, best_x=rep_x,
-                                       traj_best=tb_rep, traj_mean=tm_rep))
-        return Segment(state=state, best_y=float(rep_y[r]), best_x=rep_x[r],
-                       traj_best=reduce(tb_rep, axis=0),
-                       traj_mean=tm_rep.mean(axis=0), gens=epochs * e,
-                       telemetry=tele)
+                migrations=migrations, telemetry_unit_gens=unit))
+        return build_segment(state, epochs * e, *rep, minimize=mini,
+                             telemetry=tele)
 
 
 def fold_island_bests(bys, bxs, tms, n_repeats: int,
                       minimize: bool) -> torch.Tensor:
     """A segment's per-interval island bests folded on their device, as
-    `islands` samples them, into one int32 tensor for one read-back
-    (`unpack_island_fold`).
+    `islands` samples them, into `pack_segment`'s one int32 tensor.
 
     `bys` [K, R?, I] f32, `bxs` [K, R?, I, V] int32 and `tms` [R?, I, ...]
-    f32 (a gridded launch's means a generation) hold a launch each.  Per interval the first island at the extreme (NaN
-    counts as one, as NumPy's argmin counts it); across intervals the
-    earliest strict improvement on +-inf, so an interval whose pick is NaN
-    gives nothing and a replica nothing improves keeps +-inf and zeros.
-    One trajectory sample a launch: the extreme over its intervals and
-    islands, NaN propagating.  The words are the launch means [L, R, -1]
-    first, then best [R], best_x [R, V] and traj_best [L, R]."""
+    f32 (a gridded launch's means a generation) hold a launch each.  Per
+    interval the first island at the extreme (NaN counts as one, as NumPy's
+    argmin counts it); across intervals the earliest strict improvement on
+    +-inf, so an interval whose pick is NaN gives nothing and a replica
+    nothing improves keeps +-inf and zeros.  One trajectory sample a
+    launch: the extreme over its intervals and islands, NaN propagating;
+    its mean the launch means [R, L, -1]."""
     sizes = [t.shape[0] for t in bys]
     by = torch.cat(bys).reshape(sum(sizes), n_repeats, -1)      # [T, R, I]
     bx = torch.cat(bxs).reshape(by.shape + (-1,))                # [.., V]
-    tm = torch.stack(tms).reshape(len(tms), n_repeats, -1)      # [L, R, I]
+    tm = torch.stack([t.reshape(n_repeats, -1) for t in tms], 1)  # [R, L, I]
     arg, red = ((torch.argmin, torch.amin) if minimize
                 else (torch.argmax, torch.amax))
     worst = math.inf if minimize else -math.inf
@@ -1047,27 +1007,62 @@ def fold_island_bests(bys, bxs, tms, n_repeats: int,
     # all launches but the last hold sizes[0] intervals
     head = sizes[0] * (len(sizes) - 1)
     tb = torch.cat([
-        red(by[:head].reshape(-1, sizes[0], *by.shape[1:]), dim=(1, 3)),
-        red(by[head:], dim=(0, 2)).unsqueeze(0)])                # [L, R]
-    return torch.cat([tm.view(torch.int32).reshape(-1),
-                      best.view(torch.int32), best_x.reshape(-1),
-                      tb.view(torch.int32).reshape(-1)])
+        red(by[:head].reshape(-1, sizes[0], *by.shape[1:]), dim=(1, 3)).T,
+        red(by[head:], dim=(0, 2)).unsqueeze(1)], dim=1)         # [R, L]
+    return pack_segment(best, best_x, tb, tm)
 
 
-def unpack_island_fold(words: np.ndarray, n_repeats: int, v: int,
-                       launches: int):
-    """`fold_island_bests`' words (np.uint32, on the host) -> (best [R],
-    best_x [R, V] uint32, traj_best [R, L], traj_mean [R, L]); traj_mean
-    is the launch means' float32 NumPy mean over the islands."""
+def launch_sample(y: torch.Tensor, minimize: Optional[bool] = None):
+    """A launch's trajectory sample of its fitness y [..., N]: (the extreme,
+    None without `minimize`, and the mean over the population)."""
+    ext = None
+    if minimize is not None:
+        ext = torch.amin(y, dim=-1) if minimize else torch.amax(y, dim=-1)
+    return ext, torch.mean(y, dim=-1)
+
+
+def pack_segment(best: torch.Tensor, best_x: torch.Tensor,
+                 traj_best: torch.Tensor,
+                 traj_mean: torch.Tensor) -> torch.Tensor:
+    """A segment's result as one int32 tensor on its device: the sample
+    means [R, S, X] f32 (X averaged on the host; [R, S] is X = 1), best [R]
+    f32, best_x [R, V] int32 and traj_best [R, S] f32."""
+    return torch.cat([traj_mean.reshape(-1).view(torch.int32),
+                      best.reshape(-1).view(torch.int32), best_x.reshape(-1),
+                      traj_best.reshape(-1).view(torch.int32)])
+
+
+def read_segment(words: torch.Tensor, n_repeats: int, v: int,
+                 samples: int):
+    """`pack_segment`'s words read back once, in a `segment.result` span
+    (counter `readback_bytes`), and unpacked: (best [R], best_x [R, V]
+    uint32, traj_best [R, S], traj_mean [R, S], float32 means over X)."""
     r_ = n_repeats
-    f = words.view(np.float32)
-    n_tm = words.size - r_ - r_ * v - launches * r_
-    tm = f[:n_tm].reshape(launches, r_, -1)
-    rep_y = f[n_tm:n_tm + r_]
-    rep_x = words[n_tm + r_:n_tm + r_ + r_ * v].reshape(r_, v)
-    tb = f[n_tm + r_ + r_ * v:].reshape(launches, r_)
-    return (rep_y, rep_x, np.ascontiguousarray(tb.T),
-            np.ascontiguousarray(tm.mean(axis=2).T))
+    with TR.span("segment.result") as rp:
+        host = convert.words_to_numpy(words)
+        rp.count("readback_bytes", host.nbytes)
+        f = host.view(np.float32)
+        n_tm = host.size - r_ - r_ * v - samples * r_
+        rep_y = f[n_tm:n_tm + r_]
+        rep_x = host[n_tm + r_:n_tm + r_ + r_ * v].reshape(r_, v)
+        tb = f[n_tm + r_ + r_ * v:].reshape(r_, samples)
+        return rep_y, rep_x, tb, f[:n_tm].reshape(r_, samples, -1).mean(2)
+
+
+def build_segment(state, gens: int, rep_y, rep_x, tb_rep, tm_rep, *,
+                  minimize: bool, telemetry: RT.RunTelemetry,
+                  stacked: bool = True) -> Segment:
+    """The `Segment` of `read_segment`'s arrays, and with `stacked` the
+    arrays as the telemetry's `ReplicaStats`."""
+    r = _arg_best(rep_y, minimize)
+    if stacked:
+        telemetry.per_repeat = RT.ReplicaStats(
+            best=rep_y, best_x=rep_x, traj_best=tb_rep, traj_mean=tm_rep)
+    reduce = np.min if minimize else np.max
+    return Segment(state=state, best_y=float(rep_y[r]), best_x=rep_x[r],
+                   traj_best=reduce(tb_rep, axis=0),
+                   traj_mean=tm_rep.mean(axis=0), gens=gens,
+                   telemetry=telemetry)
 
 
 TOPOLOGIES: Dict[str, type] = {

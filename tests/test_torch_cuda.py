@@ -29,7 +29,9 @@ from repro_torch.core import islands as TISL  # noqa: E402
 from repro_torch.kernels import ga_step as K  # noqa: E402
 from repro_torch.kernels import lfsr_kernel as K4  # noqa: E402
 from test_torch_island_fold import (CASES, assert_same_bits,  # noqa: E402
-                                    device_fold, planted_bests, twin_fold)
+                                    assert_segment, device_fold,
+                                    keep_single_blocks, planted_bests,
+                                    twin_fold, twin_single)
 from test_torch_seed_state import ZERO_WORDS  # noqa: E402
 
 
@@ -533,6 +535,45 @@ def test_island_cell_segment_folds_on_the_card(cuda_device, monkeypatch):
     assert fold["attrs"] == {"intervals_folded": 64}
     assert fold["t1"] <= wait["t0"] and wait["t1"] <= res["t0"]
     assert res["attrs"]["readback_bytes"] <= 70000
+
+
+@pytest.mark.cuda
+def test_single_segment_folds_on_the_card(cuda_device, monkeypatch):
+    """A fused chunk of the d10 cells' shape on the card (51 x 1024, V=10,
+    1024 generations in launches of 32): every field of the segment and of
+    its `per_repeat` equals `twin_single`'s host reduction of the block it
+    packed, the pack's `segment.fold` ends before `segment.wait`, and the
+    boundary reads back the one packed tensor (`readback_bytes`)."""
+    from repro_torch import trace as TR
+
+    spec = ga.GASpec(problem="rastrigin:10", n=1024, bits_per_var=16,
+                     mode="arith", mutation_rate=0.02, generations=1024,
+                     n_repeats=51, gens_per_epoch=32, seed=17)
+    opts = ga.EngineOptions(device="cuda", cost_table=False, faults=False)
+    seen = keep_single_blocks(monkeypatch)
+    eng = ga.Engine(spec, "fused", options=opts)
+    state = eng.init_state()
+    TR.disable()
+    TR.clear()
+    TR.enable()
+    try:
+        seg = eng.backend.segment(state, 1024)
+        recs = TR.records()
+    finally:
+        TR.disable()
+        TR.clear()
+    (out,) = seen
+    assert seg.telemetry.topology.launches == 32
+    assert_segment(seg, twin_single(out, False, True))
+    by_name = {}
+    for r in recs:
+        by_name.setdefault(r["name"], []).append(r)
+    (fold,), (wait,), (res,) = (by_name[n] for n in (
+        "segment.fold", "segment.wait", "segment.result"))
+    assert by_name["executor.launch"][-1]["t1"] <= fold["t0"]
+    assert fold["t1"] <= wait["t0"] and wait["t1"] <= res["t0"]
+    assert res["attrs"]["readback_bytes"] == 4 * (
+        32 * 51 + 51 + 51 * 10 + 32 * 51)
 
 
 @pytest.mark.cuda

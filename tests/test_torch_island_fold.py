@@ -1,12 +1,16 @@
-"""The island ring's segment fold on the tensors' own device
-(`ga.backends.fold_island_bests`, read back through `unpack_island_fold`)
-against the host loop it replaced, copied here as `twin_fold`: bit for bit
-on planted ties between islands and between intervals, NaN, +-inf,
-nothing better than +-inf, maximisation, an uneven last launch, one
-replica and 2 to 8 islands; and whole segments of every plan the CPU
-reaches, each field of `Segment` and `ReplicaStats` against the twin's
-fold of the bests that segment folded.  Only torch and the port are
-imported, so `tests/test_torch_cuda.py` reuses the twin on the card:
+"""A segment's way to the host (`ga.backends.pack_segment`,
+`read_segment`, `build_segment`) against the host code it replaced, copied
+here as twins.  The island ring's fold on the tensors' own device
+(`fold_island_bests`) against `twin_fold`, bit for bit on planted ties
+between islands and between intervals, NaN, +-inf, nothing better than
++-inf, maximisation, an uneven last launch, one replica and 2 to 8
+islands; and whole segments of every island plan the CPU reaches and of
+the single topology (reference unstacked and stacked, fused with a short
+last launch, a fitness giving NaN and +-inf), each field of `Segment` and
+`ReplicaStats` with its dtype against the twins' reduction of the arrays
+that segment reduced (`twin_single` is the single topology's old host
+copies and NumPy reduction).  Only torch and the port are imported, so
+`tests/test_torch_cuda.py` reuses the twins on the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_island_fold.py
 """
@@ -53,18 +57,64 @@ def twin_fold(bys, bxs, tms, launches, r_, v, mini):
     return rep_y, rep_x, tb_rep, tm_rep
 
 
+def twin_single(out, unstacked, mini):
+    """`SingleTopology.segment`'s host reduction as it was, of an executor
+    block's `out` (state, best_y, best_x, traj_best, traj_mean): (best_y,
+    best_x, traj_best, traj_mean, per_repeat as (best, best_x, traj_best,
+    traj_mean) or None)."""
+    _state, by, bx, tb, tm = out
+    if unstacked:
+        return (float(by), convert.words_to_numpy(bx), tb.cpu().numpy(),
+                tm.cpu().numpy(), None)
+    per_rep = by.cpu().numpy()                     # [R]
+    bx = convert.words_to_numpy(bx)                # [R, V]
+    tb, tm = tb.cpu().numpy(), tm.cpu().numpy()    # [R, T]
+    r = int(np.argmin(per_rep) if mini else np.argmax(per_rep))
+    reduce = np.min if mini else np.max
+    best_tb, mean_tm = reduce(tb, axis=0), tm.mean(axis=0)
+    return (float(per_rep[r]), bx[r], best_tb, mean_tm,
+            (per_rep, bx, tb, tm))
+
+
+def twin_island_segment(rep_y, rep_x, tb, tm, mini):
+    """The island segment's fields as the host built them from
+    `twin_fold`'s arrays, in `twin_single`'s order."""
+    r = int(np.argmin(rep_y) if mini else np.argmax(rep_y))
+    reduce = np.min if mini else np.max
+    return (float(rep_y[r]), rep_x[r], reduce(tb, axis=0), tm.mean(axis=0),
+            (rep_y, rep_x, tb, tm))
+
+
+def assert_segment(seg, want):
+    """Every field of `seg` and of its `per_repeat` equals the twin's
+    `want` in type, dtype, shape and bits."""
+    best_y, best_x, tb, tm, per = want
+    assert type(seg.best_y) is float
+    assert_same_bits((np.float64(seg.best_y).reshape(1).view(np.uint64),
+                      seg.best_x, seg.traj_best, seg.traj_mean),
+                     (np.float64(best_y).reshape(1).view(np.uint64),
+                      best_x, tb, tm))
+    rep = seg.telemetry.per_repeat
+    if per is None:
+        assert rep is None
+    else:
+        assert_same_bits((rep.best, rep.best_x, rep.traj_best,
+                          rep.traj_mean), per)
+
+
 def device_fold(bys, bxs, tms, r_, v, mini):
-    """The port's fold and its one read-back, with the bytes it read."""
-    host = convert.words_to_numpy(B.fold_island_bests(bys, bxs, tms, r_,
-                                                      mini))
-    return B.unpack_island_fold(host, r_, v, len(bys)), host.nbytes
+    """The port's fold, packed, and its one read-back, with the bytes it
+    read."""
+    words = B.fold_island_bests(bys, bxs, tms, r_, mini)
+    return B.read_segment(words, r_, v, len(bys)), 4 * words.numel()
 
 
 def assert_same_bits(got, want):
     """Arrays equal in dtype, shape and every bit (NaN payloads too)."""
     for a, b in zip(got, want, strict=True):
         assert a.dtype == b.dtype and a.shape == b.shape
-        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+        np.testing.assert_array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                      np.ascontiguousarray(b).view(np.uint8))
 
 
 CASES = ("ties", "interval_ties", "nan", "inf", "all_worst", "all_nan")
@@ -166,8 +216,84 @@ PLANS = {
 }
 
 
-@pytest.mark.parametrize("name", list(PLANS))
-def test_segment_fields_match_the_host_loop(name, monkeypatch):
+def spiky(v):
+    """A sum of squares with NaN, +inf and -inf planted by region, so the
+    trajectories and the bests carry all three."""
+    y = (v * v).sum(-1)
+    y = torch.where(v[..., 0] > 4.0, float("nan"), y)
+    y = torch.where(v[..., 1] > 4.0, float("inf"), y)
+    return torch.where(v[..., 1] < -4.5, float("-inf"), y)
+
+
+SPIKY = {"problem": None, "fitness": spiky, "bounds": ((-5.12, 5.12),) * 3}
+# the single topology: (backend, spec fields, generations); the fused
+# launches run 4, 4 and 2 generations
+SINGLE_BASE = dict(BASE, n_repeats=3, n_islands=1)
+SINGLE = {
+    "reference_unstacked": ("reference", {"n_repeats": 1}, 9),
+    "reference_stacked": ("reference", {}, 9),
+    "reference_maximise": ("reference", {"minimize": False}, 9),
+    "fused_one_replica": ("fused", {"n_repeats": 1}, 10),
+    "fused_stacked": ("fused", {}, 10),
+    "fused_maximise": ("fused", {"minimize": False}, 10),
+    "reference_unstacked_nan_inf": ("reference",
+                                    dict(SPIKY, n_repeats=1), 9),
+    "reference_nan_inf": ("reference", SPIKY, 9),
+    "fused_nan_inf": ("fused", SPIKY, 10),
+    "fused_nan_inf_maximise": ("fused", dict(SPIKY, minimize=False), 10),
+}
+CPU = ga.EngineOptions(device="cpu", cost_table=False, faults=False)
+
+
+def _leaves_equal(a, b):
+    for x, y in zip(a, b, strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def keep_single_blocks(monkeypatch) -> list:
+    """The list each single-topology executor block's output is appended
+    to, from here on (`SingleTopology._runner` wrapped)."""
+    seen = []
+    real = B.SingleTopology._runner
+
+    def keep(self, g):
+        run = real(self, g)
+
+        def runner(state):
+            seen.append(run(state))
+            return seen[-1]
+        return runner
+
+    monkeypatch.setattr(B.SingleTopology, "_runner", keep)
+    return seen
+
+
+def single_segment(name, monkeypatch):
+    """A single-topology segment and `twin_single` of the executor block
+    it reduced; the segment's state, gens and launches are the block's."""
+    backend, extra, gens = SINGLE[name]
+    spec = ga.GASpec(**dict(SINGLE_BASE, **extra))
+    seen = keep_single_blocks(monkeypatch)
+    eng = ga.Engine(spec, backend, options=CPU)
+    state = eng.init_state()
+    unstacked = state.x.dim() == 2
+    assert unstacked == (backend == "reference" and spec.n_repeats == 1)
+    seg = eng.backend.segment(state, gens)
+    (out,) = seen
+    _leaves_equal(seg.state, out[0])
+    assert seg.gens == gens
+    assert (seg.telemetry.topology.launches
+            == eng.backend.executor.launches(gens)
+            == (3 if backend == "fused" else 0))
+    if "nan_inf" in name:
+        tb = out[3].cpu().numpy()
+        assert np.isnan(tb).any() and np.isinf(out[1].cpu().numpy()).any()
+    return seg, twin_single(out, unstacked, spec.minimize)
+
+
+def island_segment(name, monkeypatch):
+    """An island segment under its plan and the twins' fold of the bests
+    it folded; its state is the `islands` backend's."""
     backend, plan, extra, shards, gens = PLANS[name]
     spec = ga.GASpec(**dict(BASE, **extra))
     mesh = (Mesh([torch.device("cpu")] * shards, ("islands",)) if shards
@@ -189,19 +315,21 @@ def test_segment_fields_match_the_host_loop(name, monkeypatch):
     (bys, bxs, tms), = seen
     launches = seg.telemetry.topology.launches
     assert len(bys) == launches
+    ref = ga.Engine(spec, "islands", options=CPU)
+    _leaves_equal(seg.state, ref.backend.segment(ref.init_state(),
+                                                 gens).state)
     mini, v = spec.minimize, spec.ga_config().v
-    rep_y, rep_x, tb, tm = twin_fold(bys, bxs, tms, launches,
-                                     spec.n_repeats, v, mini)
-    per = seg.telemetry.per_repeat
-    assert_same_bits((per.best, per.best_x, per.traj_best, per.traj_mean),
-                     (rep_y, rep_x, tb, tm))
-    r = int(np.argmin(rep_y) if mini else np.argmax(rep_y))
-    reduce = np.min if mini else np.max
-    assert seg.best_y == float(rep_y[r])
-    assert_same_bits((np.asarray(seg.best_y, np.float32), seg.best_x,
-                      seg.traj_best, seg.traj_mean),
-                     (rep_y[r], rep_x[r], reduce(tb, axis=0),
-                      tm.mean(axis=0)))
+    return seg, twin_island_segment(
+        *twin_fold(bys, bxs, tms, launches, spec.n_repeats, v, mini), mini)
+
+
+@pytest.mark.parametrize("name", list(PLANS) + list(SINGLE))
+def test_segment_fields_match_the_host_loop(name, monkeypatch):
+    """Every field of the segment and of its `per_repeat`, with its dtype,
+    against the twins: the island plans' fold and the single topology's
+    old host reduction (`per_repeat` None on the unstacked reference)."""
+    make = single_segment if name in SINGLE else island_segment
+    assert_segment(*make(name, monkeypatch))
 
 
 def test_the_fold_stays_on_the_bests_device():

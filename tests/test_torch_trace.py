@@ -86,6 +86,13 @@ def test_spans_nest_through_run_and_init_state():
     # 12 generations at 4 a launch: three K1 calls under the segment
     assert [parent(r) for r in names["executor.launch"]] == [
         "topology.segment"] * 3
+    # the result packed once after the last launch, then read back once:
+    # 3 samples x 2 replicas of means and of bests, 2 bests, 2 x 3 words
+    (fold,), (res,) = names["segment.fold"], names["segment.result"]
+    assert parent(fold) == "topology.segment" and fold["attrs"] == {}
+    assert names["executor.launch"][-1]["t1"] <= fold["t0"]
+    assert fold["t1"] <= res["t0"]
+    assert res["attrs"] == {"readback_bytes": 4 * (6 + 2 + 2 * 3 + 6)}
     for r in recs:
         assert 0 < r["t0"] <= r["t1"]
         if r["parent"]:
@@ -131,6 +138,11 @@ def test_run_ids_follow_the_chunks():
         (e, 1), (e, 2), (e, 3)]
     assert [r["run"] for r in names["segment.result"]] == [
         (e, 1), (e, 2), (e, 3)]
+    assert [r["run"] for r in names["segment.fold"]] == [
+        (e, 1), (e, 2), (e, 3)]
+    # chunks of 5, 5 and 2 generations, a sample each, 2 replicas of V=3
+    assert [r["attrs"]["readback_bytes"] for r in names["segment.result"]
+            ] == [4 * (2 * g * 2 + 2 + 2 * 3) for g in (5, 5, 2)]
     # init_state runs before the first chunk, under the engine's own id
     assert [r["run"] for r in names["engine.init_state"]] == [(e, None)]
     assert names["engine.init_state"][0]["parent"] is None
