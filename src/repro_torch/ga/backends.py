@@ -650,12 +650,18 @@ class IslandRingTopology(Topology):
                     raise ValueError(reason)
                 plan["tile_islands"] = t
             plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
+            plan["population_bits"] = 32
         elif plan["mode"].startswith("resident"):
-            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
+            plan["smem_estimate_bytes"] = K.resident_block_bytes(self.cfg)
+            plan["population_bits"] = K.population_bits(self.cfg.c)
+            if plan["mode"] != "resident-free":
+                plan["clusters_at_once"] = K.clusters_at_once(
+                    self.cfg, self.i_local, self.device)
         elif (self.executor.name == "fused"
               and K.block_reason(self.cfg, self.executor.program) is None):
             # (K1's global form keeps no replica in shared memory)
             plan["smem_estimate_bytes"] = K.smem_bytes(n, v, p)
+            plan["population_bits"] = 32
         return plan
 
     @staticmethod
@@ -933,8 +939,11 @@ class IslandRingTopology(Topology):
         the segment's wait; the host reads its packed result back once.
 
         Traced, the segment is a `topology.segment` span (attribute `plan`,
-        counters `intervals` and `migrations`; off a mesh on a card also
-        `SegmentClock`'s timing events and launch counts), a
+        and `population_bits` where the plan's kernel holds its population
+        in shared memory; counters `intervals` and `migrations`, and on a
+        card for a K2 ring `cluster_waves`, its launches times the waves of
+        clusters each takes; off a mesh on a card also `SegmentClock`'s
+        timing events and launch counts), a
         `topology.launch` span a runner call, a `segment.fold` span around
         the fold's enqueue (counter `intervals_folded`), `segment.wait`
         and `segment.result` (`read_segment`)."""
@@ -945,9 +954,16 @@ class IslandRingTopology(Topology):
         sched, unit = self._schedule(epochs)
         bys, bxs, tms = [], [], []
         a = self._island_dim()
-        with TR.span("topology.segment", plan=self.plan["mode"]) as sp:
+        attrs = {"plan": self.plan["mode"]}
+        if "population_bits" in self.plan:
+            attrs["population_bits"] = self.plan["population_bits"]
+        with TR.span("topology.segment", **attrs) as sp:
             sp.count("intervals", epochs)
             sp.count("migrations", migrations)
+            at_once = self.plan.get("clusters_at_once")
+            if at_once:
+                sp.count("cluster_waves", len(sched) * self.n_shards
+                         * -(-self.spec.n_repeats // at_once))
             # on a mesh the launches run on several devices: no clock
             mark = self.clock.start(sp and self.mesh is None, K.LAUNCHES)
             shards = [state] if self.mesh is None else self._split(state)

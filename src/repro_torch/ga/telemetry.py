@@ -14,7 +14,7 @@
 The fields are the JAX package's that the port's topologies fill, under
 the same names, so a consumer reads both packages the same way; the one
 byte field is `smem_estimate_bytes` where the JAX package has its VMEM
-estimate.
+estimate; `population_bits` and `clusters_at_once` are the port's own.
 """
 
 from __future__ import annotations
@@ -36,8 +36,11 @@ class PlanInfo:
     for the gridded fallback and for the streamed lane, which exists
     because of that refusal).  tile_islands is the streamed mode's island
     tile; lane the selection lane the kernels ran; smem_estimate_bytes the
-    dynamic shared memory one thread block of the plan's kernel takes;
-    gens_per_s the measured rate that justified a "measured" choice."""
+    dynamic shared memory one thread block of the plan's kernel takes, and
+    population_bits the width of a population word there (16 in K2's
+    layout at c <= 16, else 32); clusters_at_once the K2 clusters the card
+    holds at once (a ring plan on a card); gens_per_s the measured rate
+    that justified a "measured" choice."""
 
     mode: str = "-"
     source: str = "-"
@@ -48,6 +51,8 @@ class PlanInfo:
     lane: str = "-"
     smem_estimate_bytes: Optional[int] = None
     gens_per_s: Optional[float] = None
+    population_bits: Optional[int] = None
+    clusters_at_once: Optional[int] = None
 
     @classmethod
     def from_plan(cls, plan: Dict[str, Any]) -> "PlanInfo":
@@ -60,7 +65,9 @@ class PlanInfo:
                    tile_islands=plan.get("tile_islands"),
                    lane=plan.get("lane", "-"),
                    smem_estimate_bytes=plan.get("smem_estimate_bytes"),
-                   gens_per_s=plan.get("plan_gens_per_s"))
+                   gens_per_s=plan.get("plan_gens_per_s"),
+                   population_bits=plan.get("population_bits"),
+                   clusters_at_once=plan.get("clusters_at_once"))
 
 
 @dataclasses.dataclass

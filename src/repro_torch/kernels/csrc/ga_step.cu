@@ -51,7 +51,9 @@
 // SMs: 0.057 ms, int32-bound); both say operation-bound.  In practice the
 // bound is the
 // issue rate of one island's warps: a generation has one barrier, and the
-// block's time is that of its slowest warp.
+// block's time is that of its slowest warp.  A small island (N=256: 4 warps
+// a block) leaves an SM latency-bound, so there the blocks an SM holds set
+// the pace, and K2's 16-bit layout (below) doubles them.
 //
 // What the design does about it.
 //   * An island's state lives in dynamic shared memory for all of a
@@ -95,8 +97,23 @@
 //     registers, __launch_bounds__(512, 2)) share an SM, and K2's 16
 //     clusters of 8 fit the card in one wave.  Every shape the layout
 //     before this one took still fits.  The Python wrappers check the
-//     footprint against the 227 KB a block can use before launching.  The card holds only 15 clusters of 8 with one
-//     island an SM, so the 16th shares SMs, which set the launch's pace.
+//     footprint against the 227 KB a block can use before launching.  The
+//     card holds only 15 clusters of 8 with one island an SM, so the 16th
+//     shares SMs, which set the launch's pace.
+//   * K2's 16-bit layout.  Where the bits a variable c <= 16, every
+//     population word the port makes is below 2^16: the initial states keep
+//     a word's top c bits (`seed_state`, `init_islands_fast`), crossover
+//     takes each bit of a child from one parent, the XOR mutation flips only
+//     the low c bits, and a splice copies a row.  On that invariant K2 holds
+//     its two population buffers as uint16_t [V][N] (the Python wrapper
+//     picks the layout from c alone; HBM keeps int32 words, narrowed at the
+//     load and widened at the store; a pair's children are one 4-byte
+//     store), 4NV bytes less a block: 51,900 B against 82,620 at the island
+//     cell (N=256, V=30, P=6), so an SM holds four of its blocks, not two,
+//     and its 51 clusters of 8 run in one wave, where the 32-bit layout held
+//     30 at once and ran a second wave of 21.  Every operation sees the
+//     same values in the same order, so the state is the 32-bit layout's bit
+//     for bit.  K1 and K3 keep 32-bit words.
 //
 // K2's ring.  The TPU kernel keeps every island of a replica group in one
 // VMEM block; a Hopper block is far smaller, so K2 gives each island its own
@@ -202,9 +219,12 @@ struct Stack {
 // Buffers are picked with X(b), Y(b), rval(b) rather than pointer arrays: an
 // array indexed at run time would put the struct in local memory and hide
 // from the compiler that every pointer here addresses shared memory.
+// W is the population word: uint32_t, or uint16_t in K2's 16-bit layout
+// (see the header), widened at every read and narrowed at every write.
+template <class W>
 struct Island {
-  uint32_t* x0;      // [V, N] population, variable-major (buffer 0)
-  uint32_t* x1;      //        (buffer 1)
+  W* x0;             // [V, N] population, variable-major (buffer 0)
+  W* x1;             //        (buffer 1)
   float* y0;         // [N] fitness of x0
   float* y1;         // [N] fitness of x1
   uint32_t* sel;     // [2, N]
@@ -221,7 +241,7 @@ struct Island {
                      // the idle one, the store the whole as its table
   uint32_t* elite;   // [V] epoch kernels: the elite a neighbour reads
   int* slot;         // [1] epoch kernels: a slot broadcast to the block
-  __device__ __forceinline__ uint32_t* X(int b) const { return b ? x1 : x0; }
+  __device__ __forceinline__ W* X(int b) const { return b ? x1 : x0; }
   __device__ __forceinline__ float* Y(int b) const { return b ? y1 : y0; }
   __device__ __forceinline__ float* rval(int b) const { return red + 64 * b; }
   __device__ __forceinline__ int* ridx(int b) const {
@@ -229,10 +249,10 @@ struct Island {
   }
 };
 
-// Words of a block of kernel `which` (0: K1; 1, 2: K2, K3) without the
-// mutation rows.
-__host__ inline size_t base_words(int which, int n, int v) {
-  return 2 * (size_t)n * v          // population, two buffers
+// Words of a block of kernel `which` (0: K1; 1, 2: K2, K3) with population
+// words of `bits` bits (16: K2's 16-bit layout), without the mutation rows.
+__host__ inline size_t base_words(int which, int n, int v, int bits) {
+  return (size_t)n * v * bits / 16  // population, two buffers
          + 2 * (size_t)n            // fitness, two buffers
          + 2 * (size_t)n            // selection bank
          + (size_t)v * (n / 2)      // crossover bank
@@ -243,8 +263,10 @@ __host__ inline size_t base_words(int which, int n, int v) {
 
 // Whether the mutation rows below P stay in global memory: they do when
 // they would not fit beside the rest.
-__host__ inline bool rows_in_global(int which, int n, int v, int p) {
-  return 4 * (base_words(which, n, v) + (size_t)v * p) > (size_t)kSmemLimit;
+__host__ inline bool rows_in_global(int which, int n, int v, int p,
+                                   int bits) {
+  return 4 * (base_words(which, n, v, bits) + (size_t)v * p) >
+         (size_t)kSmemLimit;
 }
 
 __host__ inline int threads_for(int n) {
@@ -253,14 +275,16 @@ __host__ inline int threads_for(int n) {
 }
 
 // The block's layout for island `k` of the stack.
-__device__ __forceinline__ Island carve(uint32_t* smem, const Shape& S,
-                                        uint32_t* mut_out, size_t k) {
-  // x and sel first: their pair accesses are 8-byte vector loads
+template <class W>
+__device__ __forceinline__ Island<W> carve(uint32_t* smem, const Shape& S,
+                                           uint32_t* mut_out, size_t k) {
+  // x and sel first: their pair accesses are vector loads and stores (sel
+  // stays 8-byte aligned, as N is even)
   const int n = S.n, v = S.v, p = S.mut_global ? 0 : S.p;
-  Island s;
-  s.x0 = smem;
+  Island<W> s;
+  s.x0 = (W*)smem;
   s.x1 = s.x0 + (size_t)n * v;
-  s.sel = s.x1 + (size_t)n * v;
+  s.sel = (uint32_t*)(s.x1 + (size_t)n * v);
   s.y0 = (float*)(s.sel + 2 * n);
   s.y1 = s.y0 + n;
   s.cross = (uint32_t*)(s.y1 + n);
@@ -322,8 +346,9 @@ __device__ __forceinline__ uint32_t clock_word(uint32_t* m, int t) {
 }
 
 // Variable j of individual i of a variable-major population.
+template <class W>
 struct Decoder {
-  const uint32_t* x;
+  const W* x;
   int n;
   uint32_t mask;
   const float* lo;
@@ -376,7 +401,7 @@ __device__ __forceinline__ float ackley_of(float s1, float s2, float fv) {
 // step, so their dependency chains overlap (K = 2: a thread's pair).  `D`
 // reads variable j of individual i: `Decoder` in the one-block kernels'
 // shared memory, `TileDecoder` in the rows form of `ga_ffm`.
-template <int K, class D = Decoder>
+template <int K, class D>
 __device__ __forceinline__ void ffm(int problem, const D& d,
                                     const int (&i)[K], int v, float (&y)[K]) {
   switch (problem) {
@@ -456,11 +481,12 @@ __device__ __forceinline__ void ffm(int problem, const D& d,
 }
 
 // Fitness of individual i of the variable-major population x.
-__device__ __forceinline__ float fitness(const Island& s, const Shape& S,
-                                         const uint32_t* x, int i) {
+template <class W>
+__device__ __forceinline__ float fitness(const Island<W>& s, const Shape& S,
+                                         const W* x, int i) {
   const int one[1] = {i};
   float y[1];
-  ffm<1>(S.problem, Decoder{x, S.n, (1u << S.c) - 1u, s.lo, s.span}, one,
+  ffm<1>(S.problem, Decoder<W>{x, S.n, (1u << S.c) - 1u, s.lo, s.span}, one,
          S.v, y);
   return y[0];
 }
@@ -494,7 +520,8 @@ __device__ __forceinline__ float worst_value(bool minimize) {
 
 // Lane 0 of each warp leaves the warp's best (value, index) in
 // rval(buf)[warp], ridx(buf)[warp].  Every thread of the block must call it.
-__device__ __forceinline__ void warp_partial(const Island& s, int buf,
+template <class W>
+__device__ __forceinline__ void warp_partial(const Island<W>& s, int buf,
                                              float bv, int bi, bool minimize) {
   warp_best(bv, bi, minimize);
   if ((threadIdx.x & 31) == 0) {
@@ -505,7 +532,8 @@ __device__ __forceinline__ void warp_partial(const Island& s, int buf,
 
 // The best over the warp partials rval(buf), ridx(buf), in every lane of
 // the calling warp.
-__device__ __forceinline__ void fold_partials(const Island& s, int buf,
+template <class W>
+__device__ __forceinline__ void fold_partials(const Island<W>& s, int buf,
                                               bool minimize, float& bv,
                                               int& bi) {
   const int lane = threadIdx.x & 31, nwarps = (blockDim.x + 31) >> 5;
@@ -519,8 +547,9 @@ __device__ __forceinline__ void fold_partials(const Island& s, int buf,
 // Index of the best value in y[0..n) (first occurrence) in every thread;
 // 0x7fffffff when every value is NaN, with rval(buf), ridx(buf) as scratch.
 // Every thread of the block must call it; it ends on a block barrier.
+template <class W>
 __device__ __forceinline__
-int block_best(const Island& s, const float* y, int n, bool minimize,
+int block_best(const Island<W>& s, const float* y, int n, bool minimize,
                int buf) {
   float bv = worst_value(minimize);
   int bi = 0x7fffffff;
@@ -540,8 +569,9 @@ int block_best(const Island& s, const float* y, int n, bool minimize,
 // occurrence of the best value (worst with the sense flipped), or n when
 // any value is NaN; rval(buf), ridx(buf) are its scratch.  Every thread
 // of the block must call it.
+template <class W>
 __device__ __forceinline__
-int block_slot(const Island& s, const float* y, int n, bool minimize,
+int block_slot(const Island<W>& s, const float* y, int n, bool minimize,
                int buf) {
   bool nan = false;
   for (int i = threadIdx.x; i < n; i += blockDim.x) nan |= isnan(y[i]);
@@ -553,8 +583,9 @@ int block_slot(const Island& s, const float* y, int n, bool minimize,
 // the best of Y(cur) (its warp partials) into the running best, the row
 // copied with one lane a variable.  X(cur) is not overwritten before the
 // generation's barrier, which the fold warp reaches only after the copy.
+template <class W>
 __device__ __forceinline__
-void fold_best(const Island& s, const Shape& S, int cur) {
+void fold_best(const Island<W>& s, const Shape& S, int cur) {
   const bool minimize = S.minimize != 0;
   float bv;
   int bi;
@@ -570,8 +601,9 @@ void fold_best(const Island& s, const Shape& S, int cur) {
 
 // The fold warp: hand the running best to `best_x`/`best_y` and start a
 // new fold.
+template <class W>
 __device__ __forceinline__
-void take_best(const Island& s, const Shape& S, uint32_t* best_x,
+void take_best(const Island<W>& s, const Shape& S, uint32_t* best_x,
                float* best_y) {
   for (int j = threadIdx.x & 31; j < S.v; j += 32) {
     best_x[j] = s.bx[j];
@@ -586,15 +618,17 @@ void take_best(const Island& s, const Shape& S, uint32_t* best_x,
 
 // Copy island `k` of the stack into shared memory (the population
 // transposed to [V][N] in buffer 0) and reset the best fold.
+template <class W>
 __device__ __forceinline__
-void load_island(const Island& s, const Stack& g, const Shape& S, size_t k) {
+void load_island(const Island<W>& s, const Stack& g, const Shape& S,
+                 size_t k) {
   const int n = S.n, v = S.v, half = n / 2, p = S.p;
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t ox = k * n * v, osel = k * 2 * n, ocross = k * v * half,
                omut = k * v * n;
   for (int e = tid; e < n * v; e += nt) {
     const int i = e / v, j = e - i * v;
-    s.x0[(size_t)j * n + i] = g.x_in[ox + e];
+    s.x0[(size_t)j * n + i] = (W)g.x_in[ox + e];
   }
   for (int i = tid; i < 2 * n; i += nt) s.sel[i] = g.sel_in[osel + i];
   for (int i = tid; i < v * half; i += nt) s.cross[i] = g.cross_in[ocross + i];
@@ -623,9 +657,10 @@ void load_island(const Island& s, const Stack& g, const Shape& S, size_t k) {
 // nibbles, read from a table of 8 x 16 words built here in the reduction
 // scratch (free once the generations are done).  Every thread of the block
 // must call it.
+template <class W>
 __device__ __forceinline__
-void store_island(const Island& s, const Stack& g, const Shape& S, size_t k,
-                  const uint32_t* x, const float* y, int leap,
+void store_island(const Island<W>& s, const Stack& g, const Shape& S,
+                  size_t k, const W* x, const float* y, int leap,
                   bool track_best) {
   const int n = S.n, v = S.v, half = n / 2, p = S.p;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -665,8 +700,9 @@ void store_island(const Island& s, const Stack& g, const Shape& S, size_t k,
 // warp partials of y[buf]; ends on a block barrier.  `row` < 0: every row;
 // 0 <= row < n: that row alone (a spliced row); row >= n: none, only the
 // partials.
+template <class W>
 __device__ __forceinline__
-void evaluate(const Island& s, const Shape& S, int buf, bool track_best,
+void evaluate(const Island<W>& s, const Shape& S, int buf, bool track_best,
               int row) {
   const bool minimize = S.minimize != 0;
   float bv = worst_value(minimize);
@@ -682,15 +718,28 @@ void evaluate(const Island& s, const Shape& S, int buf, bool track_best,
   __syncthreads();
 }
 
+// The pair's two children into population words p[0], p[1]: one 8-byte
+// store, or one 4-byte store in the 16-bit layout (the words fit: see the
+// header).
+__device__ __forceinline__ void store_pair(uint32_t* p, uint32_t a,
+                                           uint32_t b) {
+  *(uint2*)p = make_uint2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(uint16_t* p, uint32_t a,
+                                           uint32_t b) {
+  *(ushort2*)p = make_ushort2((unsigned short)a, (unsigned short)b);
+}
+
 // One generation of the island in shared memory, from buffer `cur` into
 // cur ^ 1, with kSteps LFSR clocks a draw (0: S.steps, read at run time).
 // Every thread of the block must call it; it ends on the block barrier
 // after which X(cur ^ 1) holds the offspring and, with `eval`, Y(cur ^ 1)
 // their fitness (and, with track_best, its warp partials).
-template <int kSteps>
+template <int kSteps, class W>
 __device__ __forceinline__
-void generation(const Island& s, const Shape& S, bool track_best, bool eval,
-                int cur) {
+void generation(const Island<W>& s, const Shape& S, bool track_best,
+                bool eval, int cur) {
   const int n = S.n, v = S.v, half = n / 2, p = S.p;
   const int steps = kSteps ? kSteps : S.steps;
   // only the run-time form takes mutation rows in global memory: a branch
@@ -701,9 +750,9 @@ void generation(const Island& s, const Shape& S, bool track_best, bool eval,
   const uint32_t mask = (1u << S.c) - 1u;
   const int sel_shift = 32 - S.idx_bits, cut_shift = 32 - S.cut_bits,
             mut_shift = 32 - S.c;
-  const uint32_t* xc = s.X(cur);
+  const W* xc = s.X(cur);
   const float* yc = s.Y(cur);
-  uint32_t* xn = s.X(cur ^ 1);
+  W* xn = s.X(cur ^ 1);
   float* yn = s.Y(cur ^ 1);
 
   if (track_best && fold_warp()) fold_best(s, S, cur);
@@ -744,13 +793,13 @@ void generation(const Island& s, const Shape& S, bool track_best, bool eval,
         z2 ^= (rows_global ? clock_word(s.gmut + row + b, steps)
                            : clock_word(s.mut + j * p + b, steps)) >>
               mut_shift;
-      *(uint2*)(xn + row + a) = make_uint2(z1, z2);
+      store_pair(xn + row + a, z1, z2);
     }
     // ---- FFM of the two offspring -------------------------------------------
     if (eval) {
       const int ab[2] = {a, b};
       float y[2];
-      ffm<2>(S.problem, Decoder{xn, n, mask, s.lo, s.span}, ab, v, y);
+      ffm<2>(S.problem, Decoder<W>{xn, n, mask, s.lo, s.span}, ab, v, y);
       *(float2*)(yn + a) = make_float2(y[0], y[1]);
       if (takes(y[0], a, bv, bi, minimize)) {
         bv = y[0];
@@ -774,7 +823,7 @@ template <int kSteps>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ga_generation(const Stack g, const Shape S, int gens, int track_best) {
   extern __shared__ uint32_t smem[];
-  const Island s = carve(smem, S, g.mut_out, blockIdx.x);
+  const Island<uint32_t> s = carve<uint32_t>(smem, S, g.mut_out, blockIdx.x);
   const bool tb = track_best != 0;
   load_island(s, g, S, blockIdx.x);
   evaluate(s, S, 0, tb, -1);
@@ -800,13 +849,14 @@ struct Epoch {
 // The ring step of one interval, between the blocks of a cluster through
 // distributed shared memory; y[cur] holds the migration fitness.  Returns
 // the slot the block spliced, or n.
+template <class W>
 __device__ __forceinline__
-int ring_step(const Island& s, const Shape& S, const Epoch& E, int cur) {
+int ring_step(const Island<W>& s, const Shape& S, const Epoch& E, int cur) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n = S.n, v = S.v, tid = threadIdx.x, nt = blockDim.x;
   const int rank = (int)cluster.block_rank();
   const bool minimize = S.minimize != 0;
-  uint32_t* x = s.X(cur);
+  W* x = s.X(cur);
   // rval(cur ^ 1) is idle: its partials were folded in the last generation
   const int b = block_slot(s, s.Y(cur), n, minimize, cur ^ 1);
   const int w = block_slot(s, s.Y(cur), n, !minimize, cur ^ 1);
@@ -818,7 +868,7 @@ int ring_step(const Island& s, const Shape& S, const Epoch& E, int cur) {
       cluster.map_shared_rank(s.elite, (rank + E.islands - 1) % E.islands);
   const bool splice = !(E.boundary && rank == 0) && w < n;
   if (splice)
-    for (int j = tid; j < v; j += nt) x[(size_t)j * n + w] = src[j];
+    for (int j = tid; j < v; j += nt) x[(size_t)j * n + w] = (W)src[j];
   if (E.boundary) {
     const int group = blockIdx.x / E.islands;
     if (rank == E.islands - 1)
@@ -831,11 +881,11 @@ int ring_step(const Island& s, const Shape& S, const Epoch& E, int cur) {
   return splice ? w : n;
 }
 
-template <int kSteps>
+template <int kSteps, class W>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ga_epoch(const Stack g, const Shape S, const Epoch E) {
   extern __shared__ uint32_t smem[];
-  const Island s = carve(smem, S, g.mut_out, blockIdx.x);
+  const Island<W> s = carve<W>(smem, S, g.mut_out, blockIdx.x);
   load_island(s, g, S, blockIdx.x);
   evaluate(s, S, 0, true, -1);
   int cur = 0;
@@ -896,8 +946,9 @@ __device__ __forceinline__ void group_barrier(unsigned* arrived,
 
 // Island `k`'s elite (b: its slot, n for none, which gives zeros) into
 // `dst`, and its worst slot `w` into *worst.
+template <class W>
 __device__ __forceinline__
-void send_elite(const Island& s, const Shape& S, int cur, int b, int w,
+void send_elite(const Island<W>& s, const Shape& S, int cur, int b, int w,
                 uint32_t* dst, int* worst) {
   for (int j = threadIdx.x; j < S.v; j += blockDim.x)
     dst[j] = b < S.n ? s.X(cur)[(size_t)j * S.n + b] : 0u;
@@ -926,7 +977,7 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
       const size_t k = (size_t)group * T.islands + i;
       const size_t from = (size_t)group * T.islands +
                           (i + T.islands - 1) % T.islands;
-      const Island s = carve(smem, S, g.mut_out, k);
+      const Island<uint32_t> s = carve<uint32_t>(smem, S, g.mut_out, k);
       // from the second interval on, a walking block reloads what it
       // stored (a value, not a reference: no stack frame)
       Stack src = g;
@@ -984,7 +1035,7 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
   if (keep) {
     // y: the final interval's migration fitness (pre-splice)
     const size_t k = (size_t)group * T.islands + first;
-    const Island s = carve(smem, S, g.mut_out, k);
+    const Island<uint32_t> s = carve<uint32_t>(smem, S, g.mut_out, k);
     store_island(s, g, S, k, s.X(cur), s.Y(cur),
                  T.intervals * T.migrate_every * S.steps, false);
   } else if (ring) {
@@ -1633,12 +1684,19 @@ bool bad_shape(size_t smem, int n, int v, int c, int p, int steps) {
          c > 31 || p < 0 || p > n || steps < 0;
 }
 
+// Whether kernel `which` has no build with population words of `bits`
+// bits: every kernel has 32; K2 alone has 16, for c <= 16 (which keeps
+// every word the GA makes below 2^16; the launch checks c).
+bool bad_layout(int which, int bits) {
+  return !(bits == 32 || (bits == 16 && which == 1));
+}
+
 // Once a kernel and device: the dynamic shared memory limit raised to all a
 // block can use, and the carveout set to all shared memory, so two island
 // blocks can share an SM.  Setting an attribute twice does no harm, so two
 // threads that race to the first launch need no lock.
 cudaError_t allow_smem(const void* kernel, int which) {
-  static std::atomic<bool> allowed[6][kMaxDevices];
+  static std::atomic<bool> allowed[8][kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1655,49 +1713,59 @@ cudaError_t allow_smem(const void* kernel, int which) {
   return e;
 }
 
+using EpochKernel = void (*)(const Stack, const Shape, const Epoch);
+
 template <int kSteps>
-const void* kernel_built(int which) {
+EpochKernel epoch_built(int bits) {
+  return bits == 16 ? ga_epoch<kSteps, uint16_t> : ga_epoch<kSteps, uint32_t>;
+}
+
+template <int kSteps>
+const void* kernel_built(int which, int bits) {
   switch (which) {
     case 0: return (const void*)ga_generation<kSteps>;
-    case 1: return (const void*)ga_epoch<kSteps>;
+    case 1: return (const void*)epoch_built<kSteps>(bits);
     case 2: return (const void*)ga_streamed_epoch<kSteps>;
   }
   return nullptr;
 }
 
-// The build of kernel `which` (0: K1, 1: K2, 2: K3) a shape takes: the
-// paper's clocks a draw as a constant (kPaperSteps) where the mutation rows
-// below P stay in shared memory, else the run-time form (0).
-int form_of(int which, int n, int v, int p, int steps) {
+// The build of kernel `which` (0: K1, 1: K2, 2: K3) a shape takes at
+// population layout `bits`: the paper's clocks a draw as a constant
+// (kPaperSteps) where the mutation rows below P stay in shared memory, else
+// the run-time form (0).
+int form_of(int which, int n, int v, int p, int steps, int bits) {
   p = p < n ? p : n;
-  return steps == kPaperSteps && !rows_in_global(which, n, v, p) ? kPaperSteps
-                                                                 : 0;
+  return steps == kPaperSteps && !rows_in_global(which, n, v, p, bits)
+             ? kPaperSteps
+             : 0;
 }
 
-// Kernel `which` in build `form`, and its slot in allow_smem's table.
-const void* kernel_of(int which, int form) {
-  return form == kPaperSteps ? kernel_built<kPaperSteps>(which)
-                             : kernel_built<0>(which);
+// Kernel `which` in build `form` at layout `bits`, and its slot in
+// allow_smem's table (K2's 16-bit builds after the six 32-bit ones).
+const void* kernel_of(int which, int form, int bits) {
+  return form == kPaperSteps ? kernel_built<kPaperSteps>(which, bits)
+                             : kernel_built<0>(which, bits);
 }
 
-int slot_of(int which, int form) {
-  return 2 * which + (form == kPaperSteps);
+int slot_of(int which, int form, int bits) {
+  return 2 * (bits == 16 ? 3 : which) + (form == kPaperSteps);
 }
 
-// Bytes a block of kernel `which` takes: the mutation rows below P
-// included unless they stay in global memory.
-size_t smem_of(int which, int n, int v, int p) {
+// Bytes a block of kernel `which` takes at layout `bits`: the mutation rows
+// below P included unless they stay in global memory.
+size_t smem_of(int which, int n, int v, int p, int bits) {
   p = p < n ? p : n;        // rows past N are none
-  return 4 * (base_words(which, n, v) +
-              (rows_in_global(which, n, v, p) ? 0 : (size_t)v * p));
+  return 4 * (base_words(which, n, v, bits) +
+              (rows_in_global(which, n, v, p, bits) ? 0 : (size_t)v * p));
 }
 
 // The kernel's Shape; p is taken as min(P, N).
 Shape shape_of(int which, int n, int v, int c, int idx_bits, int cut_bits,
-               int p, int steps, int minimize, int problem) {
+               int p, int steps, int minimize, int problem, int bits) {
   p = p < n ? p : n;
   return Shape{n, v, c, idx_bits, cut_bits, p, steps, minimize, problem,
-               (int)rows_in_global(which, n, v, p)};
+               (int)rows_in_global(which, n, v, p, bits)};
 }
 
 Stack make_stack(const void* x_in, const void* sel_in, const void* cross_in,
@@ -1744,9 +1812,15 @@ struct Launch {
 
 extern "C" {
 
-size_t ga_step_smem_bytes(int n, int v, int p) { return smem_of(0, n, v, p); }
+size_t ga_step_smem_bytes(int n, int v, int p) {
+  return smem_of(0, n, v, p, 32);
+}
 
-size_t ga_epoch_smem_bytes(int n, int v, int p) { return smem_of(1, n, v, p); }
+// A K2 block at population layout `bits` (16 or 32); a K3 block is K2's at
+// 32 bits.
+size_t ga_epoch_smem_bytes(int n, int v, int p, int bits) {
+  return smem_of(1, n, v, p, bits);
+}
 
 int ga_step_smem_limit() { return kSmemLimit; }
 
@@ -1767,17 +1841,17 @@ int ga_step_launch(const void* x_in, const void* sel_in, const void* cross_in,
                    int replicas, int n, int v, int c, int idx_bits,
                    int cut_bits, int p, int steps, int minimize, int problem,
                    int gens, int track_best, void* stream) {
-  const size_t smem = smem_of(0, n, v, p);
+  const size_t smem = smem_of(0, n, v, p, 32);
   if (bad_shape(smem, n, v, c, p, steps) || replicas < 1 || gens < 1)
     return (int)cudaErrorInvalidValue;
-  const int form = form_of(0, n, v, p, steps);
-  cudaError_t e = allow_smem(kernel_of(0, form), slot_of(0, form));
+  const int form = form_of(0, n, v, p, steps, 32);
+  cudaError_t e = allow_smem(kernel_of(0, form, 32), slot_of(0, form, 32));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
                              span);
   const Shape S = shape_of(0, n, v, c, idx_bits, cut_bits, p, steps,
-                           minimize, problem);
+                           minimize, problem, 32);
   auto* kernel = form == kPaperSteps ? ga_generation<kPaperSteps>
                                      : ga_generation<0>;
   kernel<<<replicas, threads_for(n), smem, (cudaStream_t)stream>>>(
@@ -1785,7 +1859,8 @@ int ga_step_launch(const void* x_in, const void* sel_in, const void* cross_in,
   return (int)cudaGetLastError();
 }
 
-// K2: `groups` x `islands` blocks; with `migrate`, each group's islands are
+// K2: `groups` x `islands` blocks at population layout `bits` (16 needs
+// c <= 16 and words below 2^16); with `migrate`, each group's islands are
 // one cluster.  `boundary` needs `migrate` and one interval.
 int ga_epoch_launch(const void* x_in, const void* sel_in,
                     const void* cross_in, const void* mut_in, void* x_out,
@@ -1795,54 +1870,62 @@ int ga_epoch_launch(const void* x_in, const void* sel_in,
                     const void* span, int groups, int islands, int n, int v,
                     int c, int idx_bits, int cut_bits, int p, int steps,
                     int minimize, int problem, int migrate_every,
-                    int intervals, int migrate, int boundary, void* stream) {
-  const size_t smem = smem_of(1, n, v, p);
-  if (bad_shape(smem, n, v, c, p, steps) || groups < 1 || islands < 1 ||
+                    int intervals, int migrate, int boundary, int bits,
+                    void* stream) {
+  const size_t smem = smem_of(1, n, v, p, bits);
+  if (bad_shape(smem, n, v, c, p, steps) || bad_layout(1, bits) ||
+      (bits == 16 && c > 16) || groups < 1 || islands < 1 ||
       (migrate && islands > kMaxCluster) || migrate_every < 1 ||
       intervals < 1 || (boundary && (!migrate || intervals != 1)))
     return (int)cudaErrorInvalidValue;
-  const int form = form_of(1, n, v, p, steps);
-  cudaError_t e = allow_smem(kernel_of(1, form), slot_of(1, form));
+  const int form = form_of(1, n, v, p, steps, bits);
+  cudaError_t e =
+      allow_smem(kernel_of(1, form, bits), slot_of(1, form, bits));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
                              span);
   const Shape S = shape_of(1, n, v, c, idx_bits, cut_bits, p, steps,
-                           minimize, problem);
+                           minimize, problem, bits);
   const Epoch E{islands, migrate_every, intervals, migrate, boundary,
                 (uint32_t*)send_elite, (int*)worst0};
   Launch L(groups * islands, n, smem, stream, migrate ? islands : 0);
-  auto* kernel = form == kPaperSteps ? ga_epoch<kPaperSteps> : ga_epoch<0>;
+  const EpochKernel kernel = form == kPaperSteps
+                                 ? epoch_built<kPaperSteps>(bits)
+                                 : epoch_built<0>(bits);
   e = cudaLaunchKernelEx(&L.cfg, kernel, g, S, E);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// How many clusters of `islands` K2 blocks at (n, v, p, steps) the card
-// holds at once (cudaOccupancyMaxActiveClusters), into *out; returns the
-// cudaError_t.
+// How many clusters of `islands` K2 blocks at (n, v, p, steps) and
+// population layout `bits` the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *out; returns the cudaError_t.
 int ga_epoch_max_active_clusters(int n, int v, int p, int steps, int islands,
-                                 int* out) {
-  const size_t smem = smem_of(1, n, v, p);
-  const int form = form_of(1, n, v, p, steps);
-  cudaError_t e = allow_smem(kernel_of(1, form), slot_of(1, form));
+                                 int bits, int* out) {
+  if (bad_layout(1, bits)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_of(1, n, v, p, bits);
+  const int form = form_of(1, n, v, p, steps, bits);
+  cudaError_t e =
+      allow_smem(kernel_of(1, form, bits), slot_of(1, form, bits));
   if (e != cudaSuccess) return (int)e;
   Launch L(islands, n, smem, nullptr, islands);
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel_of(1, form),
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel_of(1, form, bits),
                                              &L.cfg);
 }
 
 // Kernel `which` (0: K1, 1: K2, 2: K3) as compiled for `steps` clocks a
-// draw: registers a thread, local (spill and stack) bytes a thread, and
-// the blocks an SM holds at (n, v, p)
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int* regs,
-                         int* local_bytes, int* blocks_per_sm) {
-  const int form = form_of(which, n, v, p, steps);
-  const void* kernel = kernel_of(which, form);
+// draw at population layout `bits` (16: K2 alone): registers a thread,
+// local (spill and stack) bytes a thread, and the blocks an SM holds at
+// (n, v, p) (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int bits,
+                         int* regs, int* local_bytes, int* blocks_per_sm) {
+  if (bad_layout(which, bits)) return (int)cudaErrorInvalidValue;
+  const int form = form_of(which, n, v, p, steps, bits);
+  const void* kernel = kernel_of(which, form, bits);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_of(which, n, v, p);
-  cudaError_t e = allow_smem(kernel, slot_of(which, form));
+  const size_t smem = smem_of(which, n, v, p, bits);
+  cudaError_t e = allow_smem(kernel, slot_of(which, form, bits));
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kernel);
@@ -1870,19 +1953,19 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
                        int steps, int minimize, int problem,
                        int migrate_every, int intervals, int migrate,
                        int splice, int wave_groups, void* stream) {
-  const size_t smem = smem_of(2, n, v, p);
+  const size_t smem = smem_of(2, n, v, p, 32);
   if (bad_shape(smem, n, v, c, p, steps) || groups < 1 || islands < 1 ||
       tile < 1 || islands % tile || migrate_every < 1 || intervals < 1 ||
       (!splice && intervals != 1) || wave_groups < 1)
     return (int)cudaErrorInvalidValue;
-  const int form = form_of(2, n, v, p, steps);
-  cudaError_t e = allow_smem(kernel_of(2, form), slot_of(2, form));
+  const int form = form_of(2, n, v, p, steps, 32);
+  cudaError_t e = allow_smem(kernel_of(2, form, 32), slot_of(2, form, 32));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
                              span);
   const Shape S = shape_of(2, n, v, c, idx_bits, cut_bits, p, steps,
-                           minimize, problem);
+                           minimize, problem, 32);
   const bool ring = migrate && splice;
   const int wave = ring ? wave_groups : groups;
   auto* kernel = form == kPaperSteps ? ga_streamed_epoch<kPaperSteps>
@@ -1903,13 +1986,13 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
 // blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times
 // the SMs, into *out; returns the cudaError_t.
 int ga_streamed_capacity(int n, int v, int p, int steps, int* out) {
-  const size_t smem = smem_of(2, n, v, p);
-  const int form = form_of(2, n, v, p, steps);
-  cudaError_t e = allow_smem(kernel_of(2, form), slot_of(2, form));
+  const size_t smem = smem_of(2, n, v, p, 32);
+  const int form = form_of(2, n, v, p, steps, 32);
+  cudaError_t e = allow_smem(kernel_of(2, form, 32), slot_of(2, form, 32));
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_of(2, form), threads_for(n), smem);
+      &per_sm, kernel_of(2, form, 32), threads_for(n), smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -53,7 +53,9 @@ K1's one-block form, K2 and K3 hold one island per thread block with its
 state in shared memory (the mutation rows past P, never drawn, stay in
 global memory, and so do the rows below P where they do not fit; see the
 note at the top of the CUDA source), so (N, V) must fit `SMEM_LIMIT`, and
-their FFM stage is CUDA's own, for the built-in problems; K2's ring makes
+their FFM stage is CUDA's own, for the built-in problems; at c <= 16 K2
+holds the population as 16-bit words (`population_bits`), half the
+population's bytes, so more of its blocks share an SM; K2's ring makes
 the islands of a group one thread-block cluster, at most `MAX_CLUSTER`;
 K3's ring needs every block of a launch co-resident (`streamed_capacity`).
 K1's global form keeps the state in global memory and takes any fitness
@@ -111,12 +113,12 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _block_bytes(n: int, v: int, p: int, extra: int) -> int:
-    """Bytes of a block with `extra` words beyond K1's layout; the mutation
-    rows below P count only where they fit (else they stay in global
-    memory)."""
-    base = 4 * (2 * n * v + 4 * n + v * (n // 2) + 3 * v + 2 + 2 * 64
-                + extra)
+def _block_bytes(n: int, v: int, p: int, extra: int, bits: int = 32) -> int:
+    """Bytes of a block with `extra` words beyond K1's layout and population
+    words of `bits` bits; the mutation rows below P count only where they
+    fit (else they stay in global memory)."""
+    base = (n * v * bits // 4
+            + 4 * (4 * n + v * (n // 2) + 3 * v + 2 + 2 * 64 + extra))
     rows = base + 4 * v * min(p, n)
     return rows if rows <= _LAYOUT_LIMIT else base
 
@@ -132,11 +134,29 @@ def smem_bytes(n: int, v: int, p: int) -> int:
     return _block_bytes(n, v, p, 0)
 
 
-def epoch_smem_bytes(n: int, v: int, p: int) -> int:
+def epoch_smem_bytes(n: int, v: int, p: int, bits: int = 32) -> int:
     """Shared memory one K2 or K3 block takes for an island of shape (N, V)
     with P mutated rows: K1's layout plus the elite row a ring neighbour
-    reads and one slot."""
-    return _block_bytes(n, v, p, v + 1)
+    reads and one slot, with population words of `bits` bits (K3 and K1
+    hold 32; K2 holds `population_bits(c)`, so its block is
+    `resident_block_bytes`)."""
+    return _block_bytes(n, v, p, v + 1, bits)
+
+
+def population_bits(c: int) -> int:
+    """Bits of a population word in K2's shared memory for c bits a
+    variable: 16 where c <= 16, else 32.  Every word the port makes at
+    c <= 16 is below 2^16 (initial states keep a word's top c bits,
+    crossover and the XOR mutation keep a word below 2^c, a splice copies a
+    row), so K2 then holds its two population buffers in half the bytes,
+    bit for bit the same generations; K1 and K3 always hold 32."""
+    return 16 if c <= 16 else 32
+
+
+def resident_block_bytes(cfg: GAConfig) -> int:
+    """Shared memory one K2 block takes at `cfg`'s shape and layout
+    (`population_bits(cfg.c)`)."""
+    return epoch_smem_bytes(cfg.n, cfg.v, cfg.p, population_bits(cfg.c))
 
 
 # why a LUT config cannot take the kernels: their FFM stage is arith only
@@ -319,20 +339,21 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ga_step_launch.argtypes = [p] * 13 + [i] * 12 + [p]
     lib.ga_step_launch.restype = i
-    lib.ga_epoch_launch.argtypes = [p] * 15 + [i] * 15 + [p]
+    lib.ga_epoch_launch.argtypes = [p] * 15 + [i] * 16 + [p]
     lib.ga_epoch_launch.restype = i
     lib.ga_streamed_launch.argtypes = [p] * 16 + [i] * 17 + [p]
     lib.ga_streamed_launch.restype = i
     lib.ga_streamed_capacity.argtypes = [i] * 4 + [ctypes.POINTER(i)]
     lib.ga_streamed_capacity.restype = i
-    lib.ga_epoch_max_active_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.ga_epoch_max_active_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.ga_epoch_max_active_clusters.restype = i
-    lib.ga_step_kernel_attrs.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 3
+    lib.ga_step_kernel_attrs.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
     lib.ga_step_kernel_attrs.restype = i
     lib.ga_step_threads.argtypes = [i]
     lib.ga_step_threads.restype = i
+    lib.ga_step_smem_bytes.argtypes = [i, i, i]
+    lib.ga_epoch_smem_bytes.argtypes = [i, i, i, i]
     for fn in (lib.ga_step_smem_bytes, lib.ga_epoch_smem_bytes):
-        fn.argtypes = [i, i, i]
         fn.restype = ctypes.c_size_t
     for fn in (lib.ga_step_smem_limit, lib.ga_step_max_cluster):
         fn.argtypes = []
@@ -696,9 +717,10 @@ def global_kernel_attrs(name: str) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def epoch_smem_reason(cfg: GAConfig) -> Optional[str]:
-    """None when one island fits a K2/K3 block's shared memory, else why."""
-    need = epoch_smem_bytes(cfg.n, cfg.v, cfg.p)
+def epoch_smem_reason(cfg: GAConfig, bits: int = 32) -> Optional[str]:
+    """None when one island fits a K2/K3 block's shared memory at
+    population layout `bits` (K2's: `population_bits(cfg.c)`), else why."""
+    need = epoch_smem_bytes(cfg.n, cfg.v, cfg.p, bits)
     if need > SMEM_LIMIT:
         return (f"N={cfg.n}, V={cfg.v}, P={cfg.p} needs {need} bytes of "
                 "shared memory per island block of the epoch kernels, past "
@@ -708,9 +730,9 @@ def epoch_smem_reason(cfg: GAConfig) -> Optional[str]:
 
 def resident_smem_bytes(cfg: GAConfig, i_local: int) -> int:
     """Shared memory of one replica's resident epoch: `i_local` K2 blocks
-    of `epoch_smem_bytes`, one cluster (the quantity a planning budget
+    of `resident_block_bytes`, one cluster (the quantity a planning budget
     weighs, as the JAX package weighs `resident_vmem_bytes`)."""
-    return i_local * epoch_smem_bytes(cfg.n, cfg.v, cfg.p)
+    return i_local * resident_block_bytes(cfg)
 
 
 def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True,
@@ -726,7 +748,7 @@ def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True,
         return (f"resident epoch makes the {i_local} islands of a replica "
                 "one thread-block cluster for its ring, past the portable "
                 f"cluster size of {MAX_CLUSTER} on Hopper")
-    reason = epoch_smem_reason(cfg)
+    reason = epoch_smem_reason(cfg, population_bits(cfg.c))
     if reason is None and budget is not None:
         need = resident_smem_bytes(cfg, i_local)
         if need > budget:
@@ -899,16 +921,26 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
 
 
 def max_active_clusters(cfg: GAConfig, i_local: int) -> int:
-    """How many K2 clusters of `i_local` islands at (N, V) the card holds
-    at once (cudaOccupancyMaxActiveClusters); needs a card."""
+    """How many K2 clusters of `i_local` islands at (N, V) and K2's layout
+    (`population_bits(cfg.c)`) the card holds at once
+    (cudaOccupancyMaxActiveClusters); needs a card."""
     import ctypes
     lib = kernel_library()
     out = ctypes.c_int(0)
     _check_launch(lib.ga_epoch_max_active_clusters(
         cfg.n, cfg.v, min(cfg.p, cfg.n), cfg.steps_per_draw, i_local,
-        ctypes.byref(out)),
+        population_bits(cfg.c), ctypes.byref(out)),
         "ga_epoch occupancy")
     return out.value
+
+
+def clusters_at_once(cfg: GAConfig, i_local: int, device) -> Optional[int]:
+    """`max_active_clusters` on a card `device`; None elsewhere (the plain
+    version has no clusters)."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    with torch.cuda.device(torch.device(device)):
+        return max_active_clusters(cfg, i_local)
 
 
 KERNEL_IDS = {"ga_generation": 0, "ga_epoch": 1, "ga_streamed_epoch": 2}
@@ -916,20 +948,26 @@ KERNEL_IDS = {"ga_generation": 0, "ga_epoch": 1, "ga_streamed_epoch": 2}
 
 def kernel_attrs(name: str, cfg: GAConfig) -> Dict[str, int]:
     """Kernel `name` as built for `cfg`'s clocks a draw (3 has its own
-    build), at `cfg`'s block shape: registers and local (spill and stack)
+    build) and its population layout (K2: `population_bits(cfg.c)`; K1, K3:
+    32), at `cfg`'s block shape: registers and local (spill and stack)
     bytes a thread (cudaFuncGetAttributes), the blocks an SM holds
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the threads a
-    block; needs a card."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the threads a block,
+    the layout's bits and the bytes a block; needs a card."""
     import ctypes
     lib = kernel_library()
+    bits = population_bits(cfg.c) if name == "ga_epoch" else 32
+    p = min(cfg.p, cfg.n)
     regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     _check_launch(lib.ga_step_kernel_attrs(
-        KERNEL_IDS[name], cfg.n, cfg.v, min(cfg.p, cfg.n),
-        cfg.steps_per_draw, ctypes.byref(regs), ctypes.byref(local),
-        ctypes.byref(blocks)), f"{name} attributes")
+        KERNEL_IDS[name], cfg.n, cfg.v, p, cfg.steps_per_draw, bits,
+        ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)),
+        f"{name} attributes")
+    smem = (smem_bytes(cfg.n, cfg.v, p) if name == "ga_generation"
+            else epoch_smem_bytes(cfg.n, cfg.v, p, bits))
     return {"registers": regs.value, "local_bytes": local.value,
             "blocks_per_sm": blocks.value,
-            "threads": lib.ga_step_threads(cfg.n)}
+            "threads": lib.ga_step_threads(cfg.n),
+            "population_bits": bits, "smem_bytes": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -981,14 +1019,14 @@ def ga_epoch_plain(x, sel, cross, mut, *, cfg: GAConfig,
 
 
 def _check_epoch(name, x, sel, cross, mut, cfg, program, migrate_every,
-                 intervals) -> None:
+                 intervals, bits) -> None:
     _check_device(name, x)
     check_kernel_lane(cfg, program)
     _check_shapes(x, sel, cross, mut, cfg, lead="GI")
     if migrate_every < 1 or intervals < 1:
         raise ValueError(f"migrate_every and intervals must be >= 1, got "
                          f"{migrate_every} and {intervals}")
-    reason = epoch_smem_reason(cfg)
+    reason = epoch_smem_reason(cfg, bits)
     if reason is not None:
         raise ValueError(reason)
 
@@ -1001,9 +1039,12 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
     docstring for the contract).  `migrate=False` is the resident-free mode
     (no ring, no cluster); `boundary=True` needs the ring and one interval.
     With the ring, the I islands of a group form one thread-block cluster,
-    so I <= MAX_CLUSTER."""
+    so I <= MAX_CLUSTER.  At c <= 16 the kernel holds the population as
+    16-bit words (`population_bits`), which takes x's words below 2^16, as
+    every producer in the port makes them."""
+    bits = population_bits(cfg.c)
     _check_epoch("ga_epoch_kernel", x, sel, cross, mut, cfg, program,
-                 migrate_every, intervals)
+                 migrate_every, intervals, bits)
     if boundary and (not migrate or intervals != 1):
         raise ValueError("boundary epochs exchange elites between launches: "
                          "they need migrate=True and one interval")
@@ -1041,7 +1082,7 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
             int(cfg.minimize),
             problem_id(program), migrate_every, intervals, int(migrate),
-            int(boundary), stream)
+            int(boundary), bits, stream)
     _check_launch(err, "ga_epoch")
     LAUNCHES["ga_epoch"] += 1
     if boundary:
@@ -1110,7 +1151,7 @@ def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
     in waves the card holds (`streamed_waves`); a group whose blocks do not
     fit raises."""
     _check_epoch("ga_streamed_epoch_kernel", x, sel, cross, mut, cfg,
-                 program, migrate_every, intervals)
+                 program, migrate_every, intervals, 32)
     g_grid, i_islands = x.shape[:2]
     if tile_islands < 1 or i_islands % tile_islands:
         raise ValueError(f"tile_islands={tile_islands} must divide the "

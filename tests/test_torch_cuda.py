@@ -472,6 +472,66 @@ def test_epoch_kernel_matches_plain_at_the_island_cell(cuda_device):
         assert torch.equal(a, b), f"output {i}"
 
 
+# K2's two population layouts: 16-bit words at c <= 16, 32-bit at c = 17;
+# N from a block of one warp to 512 threads, V up to the island cell's 30
+# (at N=1024 the largest V K1's 32-bit block admits, 21, as K2 takes only
+# what K1's one-block form does)
+LAYOUT_SHAPES = [(n, v) for n in (4, 256) for v in (1, 3, 30)] + [
+    (1024, v) for v in (1, 3, 21)]
+LAYOUT_RUNS = [("ring", 1), ("ring", 2), ("free", 1), ("free", 2),
+               ("boundary", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,intervals", LAYOUT_RUNS)
+@pytest.mark.parametrize("n,v", LAYOUT_SHAPES)
+@pytest.mark.parametrize("c", [10, 16, 17])
+def test_epoch_kernel_layouts_match_plain(cuda_device, c, n, v, mode,
+                                          intervals):
+    """K2 in its 16-bit layout (c <= 16) and its 32-bit one (c = 17)
+    against its plain version, every output bit for bit (sphere: exact
+    float32), from words drawn over every bit a layout holds: [0, 2^16) at
+    c <= 16, so the bits above c that crossover carries survive the 16-bit
+    words, and all 32 bits at c = 17."""
+    prog = TF.compile_program(problem=f"sphere:{v}", bits_per_var=c)
+    cfg = TG.GAConfig(n=n, c=c, v=v, mutation_rate=0.02, seed=6,
+                      minimize=True, mode="arith", sel_lane="gather")
+    bits = K.population_bits(c)
+    assert bits == (16 if c <= 16 else 32)
+    assert K.kernel_attrs("ga_epoch", cfg)["population_bits"] == bits
+    args = _island_groups(cfg, 3, 4, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(c * n + v)
+    words = torch.randint(0, 1 << 16, args[0].shape, generator=g,
+                          dtype=torch.int64) if bits == 16 else \
+        torch.randint(-2 ** 31, 2 ** 31, args[0].shape, generator=g,
+                      dtype=torch.int64)
+    args[0] = words.to(torch.int32).to(cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=3, intervals=intervals,
+              boundary=mode == "boundary", migrate=mode != "free")
+    got = K.ga_epoch_kernel(*args, **kw)
+    want = K.ga_epoch_plain(*args, **kw)
+    assert len(got) == len(want) == (9 if mode == "boundary" else 7)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        assert torch.equal(a, b), f"output {i}"
+
+
+@pytest.mark.cuda
+def test_island_cell_clusters_run_in_one_wave(cuda_device):
+    """At the island cell (N=256, V=30, P=6, c=16, clusters of 8) K2's
+    16-bit block of 51,900 B lets four share an SM, and the card holds the
+    cell's 51 clusters at once; its 32-bit block (c=17) held two an SM."""
+    cfg = TG.GAConfig(n=256, c=16, v=30, mutation_rate=0.02, mode="arith",
+                      sel_lane="gather")
+    attrs = K.kernel_attrs("ga_epoch", cfg)
+    assert attrs["population_bits"] == 16 and attrs["smem_bytes"] == 51900
+    assert attrs["blocks_per_sm"] >= 4, attrs
+    assert K.max_active_clusters(cfg, 8) >= 51
+    wide = dataclasses.replace(cfg, c=17)
+    assert K.kernel_attrs("ga_epoch", wide)["blocks_per_sm"] == 2
+    assert K.max_active_clusters(wide, 8) < 51
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("minimize", [True, False])
 @pytest.mark.parametrize("case", CASES)
@@ -691,11 +751,12 @@ def test_streamed_solve_makes_one_launch_per_k_intervals(
 def test_epoch_shared_memory_and_clusters(cuda_device):
     lib = K.kernel_library()
     assert lib.ga_step_max_cluster() == K.MAX_CLUSTER
-    for n, v in ((2, 1), (64, 2), (1024, 8), (1024, 21), (4096, 2),
-                 (4096, 3)):
-        for p in (1, 21, n):
-            assert lib.ga_epoch_smem_bytes(n, v, p) == \
-                K.epoch_smem_bytes(n, v, p)
+    for n, v in ((2, 1), (64, 2), (256, 30), (1024, 8), (1024, 21),
+                 (4096, 2), (4096, 3)):
+        for p in (1, 6, 21, n):
+            for bits in (16, 32):
+                assert lib.ga_epoch_smem_bytes(n, v, p, bits) == \
+                    K.epoch_smem_bytes(n, v, p, bits)
     cfg = TG.GAConfig(n=1024, c=16, v=8, mutation_rate=0.02, mode="arith",
                       sel_lane="gather")
     for islands in (1, 4, 8):
@@ -926,14 +987,17 @@ def test_fused_islands_plans_match_islands_on_card(cuda_device, problem):
 @pytest.mark.parametrize("problem", ["F3", "rosenbrock:5", "sphere:8"])
 def test_budgeted_streamed_plan_matches_islands_on_card(cuda_device,
                                                         problem, islands):
-    """Under a planning budget of one island fewer than a group's K2
-    blocks, K3 runs at 8 islands or fewer (two intervals a launch, the
-    ring inside) and equals `islands`, its trajectory folded a launch."""
+    """Under a planning budget one byte short of a group's K2 blocks, K3
+    runs at 8 islands or fewer (two intervals a launch, the ring inside)
+    and equals `islands`, its trajectory folded a launch.  (K3 keeps
+    32-bit words, so at two islands one 16-bit K2 block is below a K3
+    block: the budget is set just under the resident epoch.)"""
     kw = dict(problem=problem, n_islands=islands, n_repeats=2,
               gens_per_epoch=10)
     cfg = ga.GASpec(**dict(dict(n=64, bits_per_var=10, mode="arith",
                                 mutation_rate=0.05), **kw)).ga_config()
-    budget = K.resident_smem_bytes(cfg, islands - 1)
+    budget = K.resident_smem_bytes(cfg, islands) - 1
+    assert K.epoch_smem_bytes(cfg.n, cfg.v, cfg.p) <= budget
     ref = _island_solve("islands", **kw)
     before = K.LAUNCHES["ga_streamed_epoch"]
     got = ga.solve(ref.spec, backend="fused-islands",

@@ -394,38 +394,66 @@ def test_planner_cluster_limit():
 @pytest.mark.parametrize("over", [False, True])
 def test_planner_shared_memory_limit(monkeypatch, over):
     """A K2/K3 block just under and just over the shared memory of one
-    Hopper block: resident and streamed go together, gridded (K1, a
-    smaller block) stays."""
+    Hopper block: at 32-bit words (c = 17) resident and streamed go
+    together; at c = 10 K2's 16-bit block is the smaller, so resident
+    outlasts streamed (K3 keeps 32-bit words) until its own block is over;
+    gridded (K1, a smaller block) stays."""
+    def modes(cfg):
+        ring = K.epoch_mode_candidates(cfg, 4, executor="fused",
+                                       migration="ring", gens_per_epoch=32,
+                                       migrate_every=16)
+        return ring, _modes(cfg, 4, migration="none")
+
+    wide = TG.GAConfig(n=64, c=17, v=2, mode="arith")
     cfg = TG.GAConfig(n=64, c=10, v=2, mode="arith")
     need = K.epoch_smem_bytes(64, 2, cfg.p)
     assert need - K.smem_bytes(64, 2, cfg.p) == 4 * (2 + 1)
+    assert K.resident_block_bytes(wide) == need
+    need16 = K.resident_block_bytes(cfg)
+    assert need - need16 == 4 * 64 * 2
     monkeypatch.setattr(K, "SMEM_LIMIT", need - 1 if over else need)
-    ring = K.epoch_mode_candidates(cfg, 4, executor="fused",
-                                   migration="ring", gens_per_epoch=32,
-                                   migrate_every=16)
-    free = _modes(cfg, 4, migration="none")
     if over:
+        ring, free = modes(wide)
         assert [c["mode"] for c in ring] == ["gridded"]
         assert f"{need} bytes of shared memory" in ring[0]["fallback"]
         assert free == ["gridded"]
-        assert K.streamed_tile_islands(cfg) is None
-    else:
+        assert K.streamed_tile_islands(wide) is None
+        ring, free = modes(cfg)
         assert [c["mode"] for c in ring] == ["resident", "gridded"]
         assert free == ["gridded", "resident-free"]
-        assert K.streamed_tile_islands(cfg) == 1
+        assert K.streamed_tile_islands(cfg) is None
+        monkeypatch.setattr(K, "SMEM_LIMIT", need16 - 1)
+        ring, free = modes(cfg)
+        assert [c["mode"] for c in ring] == ["gridded"]
+        assert f"{need16} bytes of shared memory" in ring[0]["fallback"]
+        assert free == ["gridded"]
+    else:
+        for c in (wide, cfg):
+            ring, free = modes(c)
+            assert [c["mode"] for c in ring] == ["resident", "gridded"]
+            assert free == ["gridded", "resident-free"]
+            assert K.streamed_tile_islands(c) == 1
 
 
 def test_plan_telemetry_reports_block_bytes():
     kw = _kw(gens_per_epoch=5)
     tele = _segment(kw, "fused-islands", 5).telemetry
-    p = ga.GASpec(**kw).ga_config().p          # ceil(32 * 0.05) = 2
-    assert tele.plan.smem_estimate_bytes == K.epoch_smem_bytes(32, 2, p)
+    cfg = ga.GASpec(**kw).ga_config()
+    p = cfg.p                                  # ceil(32 * 0.05) = 2
+    # K2 at c <= 16: 16-bit population words, 4NV bytes under K3's block
+    assert tele.plan.smem_estimate_bytes == K.resident_block_bytes(cfg) \
+        == K.epoch_smem_bytes(32, 2, p, 16) \
+        == K.epoch_smem_bytes(32, 2, p) - 4 * 32 * 2
+    assert tele.plan.population_bits == 16
+    # no card: no clusters to count
+    assert tele.plan.clusters_at_once is None
     assert tele.plan.lane == "onehot" and tele.plan.epochs_per_launch == 1
     tele = _segment(kw, "fused-islands", 5,
                     plan_override="gridded").telemetry
     assert tele.plan.smem_estimate_bytes == K.smem_bytes(32, 2, p)
-    assert _segment(kw, "islands", 5).telemetry.plan.smem_estimate_bytes \
-        is None
+    assert tele.plan.population_bits == 32
+    plan = _segment(kw, "islands", 5).telemetry.plan
+    assert plan.smem_estimate_bytes is None and plan.population_bits is None
 
 
 @pytest.mark.parametrize("groups,islands,cap,tile,waves", [

@@ -239,13 +239,111 @@ def test_footprint_holds_the_mutation_rows_where_they_fit(n, v, p, held):
 def test_full_width_island_blocks_pair_up_on_an_sm():
     """At the full-width ring (N=1024, V=8, P=21) two K2 blocks share an
     SM's 228 KiB of shared memory (1 KiB reserved a block), which is what
-    lets 16 clusters of 8 islands run in one wave."""
+    lets 16 clusters of 8 islands run in one wave; so do two K3 blocks,
+    which keep 32-bit words where K2 holds 16-bit ones (c = 16)."""
     cfg = TG.GAConfig(n=1024, c=16, v=8, mutation_rate=0.02, mode="arith")
     assert cfg.p == 21
     need = K.epoch_smem_bytes(1024, 8, cfg.p)
     assert need == 4 * (2 * 8192 + 4 * 1024 + 8 * 512 + 8 * 21 + 24 + 2
                         + 128 + 9)
-    assert 2 * (need + 1024) <= 228 * 1024
+    assert K.resident_block_bytes(cfg) == need - 2 * 2 * 8192
+    for block in (need, K.resident_block_bytes(cfg)):
+        assert 2 * (block + 1024) <= 228 * 1024
+
+
+# A block of the island cell (N=256, V=30, P=6): at 32-bit words an SM's
+# 228 KiB (1 KiB reserved a block) holds two, at 16-bit words four
+ISLAND_CELL = dict(n=256, c=16, v=30, mutation_rate=0.02, mode="arith")
+
+
+def test_island_cell_k2_blocks_fit_four_an_sm():
+    cfg = TG.GAConfig(**ISLAND_CELL)
+    assert cfg.p == 6 and K.population_bits(cfg.c) == 16
+    wide = K.epoch_smem_bytes(256, 30, 6)
+    assert wide == 82620 == K.resident_block_bytes(
+        dataclasses.replace(cfg, c=17))
+    assert K.resident_block_bytes(cfg) == 51900 == wide - 4 * 256 * 30
+    per_sm = 228 * 1024
+    assert 2 * (wide + 1024) <= per_sm < 3 * (wide + 1024)
+    assert 4 * (51900 + 1024) == 211696 <= per_sm
+    assert K.resident_smem_bytes(cfg, 8) == 8 * 51900
+
+
+@pytest.mark.parametrize("n,v", [(2, 1), (64, 2), (256, 30), (1024, 8),
+                                 (1024, 21), (4096, 3)])
+def test_k2_footprint_follows_the_layout(n, v):
+    """K2 holds 16-bit population words exactly at c <= 16: the block is
+    4NV bytes smaller (two buffers of N x V words, two bytes less each)
+    unless the room it frees takes in the mutation rows below P, which
+    then count (V * P words).  K3's block and K1's never change with c."""
+    for c in (1, 10, 16, 17, 31):
+        cfg = TG.GAConfig(n=n, c=c, v=v, mutation_rate=0.02, mode="arith")
+        p = min(cfg.p, n)
+        bits = K.population_bits(c)
+        assert bits == (16 if c <= 16 else 32)
+        wide = K.epoch_smem_bytes(n, v, p)
+        assert K.epoch_smem_bytes(n, v, p, 32) == wide
+        if bits == 32:
+            assert K.resident_block_bytes(cfg) == wide
+            continue
+        rows, base32 = 4 * v * p, K.epoch_smem_bytes(n, v, 0)
+        assert wide == base32 + (rows if base32 + rows <= K.SMEM_LIMIT
+                                 else 0)
+        base16 = base32 - 4 * n * v
+        assert K.resident_block_bytes(cfg) == base16 + (
+            rows if base16 + rows <= K.SMEM_LIMIT else 0)
+        assert K.resident_block_bytes(cfg) <= wide
+
+
+def test_rows_move_into_the_16_bit_block_where_it_frees_room():
+    """N=1024, V=21, P=21: at 32-bit words the mutation rows below P stay
+    in global memory; the 16-bit layout frees 86,016 B and takes them in."""
+    n, v, p = 1024, 21, 21
+    base32 = K.epoch_smem_bytes(n, v, 0)
+    assert K.epoch_smem_bytes(n, v, p) == base32
+    assert base32 + 4 * v * p > K.SMEM_LIMIT
+    assert K.epoch_smem_bytes(n, v, p, 16) == \
+        base32 - 4 * n * v + 4 * v * p
+
+
+def test_resident_plan_admits_what_the_16_bit_layout_fits():
+    """N=1024, V=22 is past a block at 32-bit words (K3, and K2 at
+    c = 17) and fits at 16-bit ones: at c = 16 the card's resident test
+    passes where the streamed lane (K3) cannot; at c = 17 it refuses with
+    K2's 32-bit bytes.  Given the program, the planner and the wrapper
+    still gate K2 on K1's block (`block_reason`, 32-bit words), so such a
+    spec plans gridded and the wrapper refuses it with K1's bytes."""
+    prog = TF.compile_program(problem="sphere:22", bits_per_var=16)
+    ring = dict(executor="fused", migration="ring", gens_per_epoch=4,
+                migrate_every=2)
+    cfg = TG.GAConfig(n=1024, c=16, v=22, mutation_rate=0.02, seed=2,
+                      mode="arith", sel_lane="gather")
+    wide = dataclasses.replace(cfg, c=17)
+    need32 = K.epoch_smem_bytes(1024, 22, cfg.p)
+    assert K.resident_block_bytes(cfg) <= K.SMEM_LIMIT < need32
+    assert K.resident_block_bytes(wide) == need32
+    assert K.resident_fit_reason(cfg, 8) is None
+    assert f"{need32} bytes" in K.resident_fit_reason(wide, 8)
+    assert K.streamed_tile_islands(cfg) is None
+    assert [c["mode"] for c in K.epoch_mode_candidates(cfg, 8, **ring)] \
+        == ["resident", "gridded"]
+    assert [c["mode"] for c in K.epoch_mode_candidates(wide, 8, **ring)] \
+        == ["gridded"]
+    (gated,) = K.epoch_mode_candidates(cfg, 8, program=prog, **ring)
+    assert gated["mode"] == "gridded"
+    assert gated["fallback"] == K.block_reason(cfg, prog)
+    # a budget weighs K2's own block
+    budget = K.resident_smem_bytes(cfg, 8)
+    assert K.resident_fit_reason(cfg, 8, budget=budget) is None
+    assert K.resident_fit_reason(cfg, 8, budget=budget - 1) is not None
+    from repro_torch.core import islands as TISL
+    st = TISL.init_islands_fast(TISL.IslandConfig(ga=cfg, n_islands=2),
+                                device="cpu")
+    args = [t.reshape((1, 2) + t.shape[1:]) for t in st[:4]]
+    for c in (cfg, wide):
+        with pytest.raises(ValueError,
+                           match=f"{K.smem_bytes(1024, 22, cfg.p)} bytes"):
+            K.ga_epoch_kernel(*args, cfg=c, program=prog, migrate_every=1)
 
 
 def test_wrapper_rejects_fitness_without_hopper_stage():

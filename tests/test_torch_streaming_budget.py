@@ -142,7 +142,8 @@ def test_candidate_boundaries_around_the_budget():
     forcing."""
     cfg = ga.GASpec(**_kw()).ga_config()
     fit = K.resident_smem_bytes(cfg, 8)
-    assert fit == 8 * K.epoch_smem_bytes(cfg.n, cfg.v, cfg.p)
+    # K2 holds 16-bit population words at c = 8; K3 (below) 32-bit ones
+    assert fit == 8 * K.epoch_smem_bytes(cfg.n, cfg.v, cfg.p, 16)
     cands = K.epoch_mode_candidates(cfg, 8, budget=fit, **RING)
     assert [c["mode"] for c in cands] == ["resident", "gridded"]
     cands = K.epoch_mode_candidates(cfg, 8, budget=fit - 1, **RING)
@@ -167,6 +168,24 @@ def test_candidate_boundaries_around_the_budget():
                                   budget=2 * JK.resident_vmem_bytes(jcfg, 1)
                                   - 1, **RING)
     assert _shape(cands) == _shape(jc)
+
+
+def test_budget_weighs_each_kernel_at_its_own_layout():
+    """The budget weighs K2's 16-bit blocks (c = 8) against the resident
+    epoch and one 32-bit K3 block against the streamed lane: at two
+    islands one K2 block is under one K3 block, so a budget of one
+    island's K2 blocks plans gridded alone, and one byte short of the
+    two islands' plans streamed."""
+    cfg = ga.GASpec(**_kw(n_islands=2)).ga_config()
+    k2, k3 = K.resident_block_bytes(cfg), K.epoch_smem_bytes(cfg.n, cfg.v,
+                                                             cfg.p)
+    assert k2 < k3 < 2 * k2
+    one = K.epoch_mode_candidates(cfg, 2, budget=K.resident_smem_bytes(
+        cfg, 1), **RING)
+    assert [c["mode"] for c in one] == ["gridded"]
+    short = K.epoch_mode_candidates(cfg, 2, budget=K.resident_smem_bytes(
+        cfg, 2) - 1, **RING)
+    assert [c["mode"] for c in short] == ["streamed", "gridded"]
 
 
 def test_migration_none_keeps_gridded_heuristic():

@@ -72,10 +72,13 @@ def test_segment_spans_follow_the_chunks(backend, plan, launches):
     segs = names["topology.segment"]
     assert [r["run"] for r in segs] == [(e, 1), (e, 2)]
     assert [ids[r["parent"]]["name"] for r in segs] == ["engine.chunk"] * 2
+    # K2 holds c = 10 words in 16 bits; the plain islands backend runs no
+    # kernel and has no layout
+    layout = {"population_bits": 16} if plan == "resident" else {}
     for seg, tele in zip(segs, teles):
         topo = tele["telemetry"].topology
         assert seg["attrs"] == {"plan": plan, "intervals": 4,
-                                "migrations": topo.migrations}
+                                "migrations": topo.migrations, **layout}
         assert topo.migrations == 4 and topo.launches == launches
         assert tele["telemetry"].plan.mode == plan
     seg_ids = [r["id"] for r in segs]
@@ -108,8 +111,10 @@ def test_without_a_ring_the_segment_counts_no_migrations():
     res = ga.solve(spec, "fused-islands", options=CPU)
     (seg,) = _by_name(TR.records())["topology.segment"]
     assert res.telemetry.topology.migrations == 0
+    # gridded: K1's one-block form, 32-bit words
     assert seg["attrs"] == {"plan": res.telemetry.plan.mode,
-                            "intervals": 8, "migrations": 0}
+                            "population_bits": 32, "intervals": 8,
+                            "migrations": 0}
 
 
 def test_a_mesh_records_the_spans_without_timing_events():
@@ -120,7 +125,8 @@ def test_a_mesh_records_the_spans_without_timing_events():
     names = _by_name(TR.records())
     (seg,) = names["topology.segment"]
     assert res.telemetry.plan.mode == "resident-sharded"
-    assert seg["attrs"] == {"plan": "resident-sharded", "intervals": 8,
+    assert seg["attrs"] == {"plan": "resident-sharded",
+                            "population_bits": 16, "intervals": 8,
                             "migrations": 8}
     assert len(names["topology.launch"]) == res.telemetry.topology.launches
     assert len(names["segment.result"]) == 1
@@ -128,6 +134,35 @@ def test_a_mesh_records_the_spans_without_timing_events():
     assert fold["parent"] == seg["id"]
     assert fold["attrs"] == {"intervals_folded": 8}
     assert "segment.wait" not in names
+
+
+@pytest.mark.parametrize("bits,at_once,waves", [
+    (10, 1, 2), (10, 2, 1), (17, 1, 2)])
+def test_segment_reports_the_layout_and_cluster_waves(monkeypatch, bits,
+                                                      at_once, waves):
+    """A resident segment carries K2's population layout (16 bits at
+    c <= 16, else 32) and counts `cluster_waves`: its launches times the
+    waves its replicas' clusters take at the plan's clusters at once (a
+    pretended count here, as the CPU has no clusters; without one the
+    counter is absent)."""
+    spec = dataclasses.replace(SPEC, bits_per_var=bits)
+    monkeypatch.setattr(K, "clusters_at_once",
+                        lambda cfg, i_local, device: at_once)
+    TR.enable()
+    res = ga.solve(spec, "fused-islands", options=CPU)
+    (seg,) = _by_name(TR.records())["topology.segment"]
+    plan, topo = res.telemetry.plan, res.telemetry.topology
+    assert plan.mode == "resident" and plan.clusters_at_once == at_once
+    assert plan.population_bits == seg["attrs"]["population_bits"] \
+        == (16 if bits <= 16 else 32)
+    assert topo.launches == 4
+    assert seg["attrs"]["cluster_waves"] == topo.launches * waves
+    monkeypatch.setattr(K, "clusters_at_once",
+                        lambda cfg, i_local, device: None)
+    TR.clear()
+    ga.solve(spec, "fused-islands", options=CPU)
+    (seg,) = _by_name(TR.records())["topology.segment"]
+    assert "cluster_waves" not in seg["attrs"]
 
 
 def _words(state):
@@ -186,8 +221,13 @@ def test_island_segment_counts_and_times_on_the_card(cuda_device):
     segs = names["topology.segment"]
     assert len(segs) == len(teles) == 3
     assert delta == {"ga_epoch": 6}
+    at_once = teles[0]["telemetry"].plan.clusters_at_once
+    assert at_once == K.max_active_clusters(spec.ga_config(), 8) >= 4
     for i, s in enumerate(segs):
         assert s["attrs"]["plan"] == "resident"
+        assert s["attrs"]["population_bits"] == 16
+        # 4 replicas' clusters: one wave a launch
+        assert s["attrs"]["cluster_waves"] == 2
         assert s["attrs"]["kernel_launches.ga_epoch"] == 2
         assert s["attrs"]["migrations"] == 4
         assert s["attrs"]["device_ms"] >= 0
