@@ -13,6 +13,12 @@ evaluation mode the engine's executors consume:
     function per built-in problem that repeats this arithmetic operation for
     operation, so the two agree bit for bit on the card.
 
+A problem may carry data (``ProblemDef.data``: V -> one float32 array),
+made once a program (`compile_program`, span ``fitness.data``); the
+program hands it to ``fn`` after the values and to the kernels, once per
+device (`FitnessProgram.device_data`).  ``rastrigin_sr`` is the one such
+built-in problem: CEC 2017 F5's form with a seeded shift and rotation.
+
 Every expression keeps the JAX reference's order of operations: ``x ** 3``
 is ``x * (x * x)`` (what ``lax.integer_pow`` evaluates), ``x ** 2`` is
 ``x * x``, and sums over V run left to right, as XLA's reduce does.  The
@@ -30,6 +36,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace as TR
+
 
 # ---------------------------------------------------------------------------
 # Problem registry
@@ -44,7 +52,8 @@ class ProblemDef:
     The optional separable form ``f(x) = gamma(Σ_i term(v, i))`` (``term`` in
     numpy, evaluated at ROM-synthesis time) enables the LUT lowering; leave
     it None for non-separable problems (rosenbrock, ackley, blackboxes),
-    which then run mode='arith' only.
+    which then run mode='arith' only.  With ``data`` (V -> a float32
+    array) ``fn`` takes that array after the values: ``fn(v, data)``.
     """
 
     name: str
@@ -56,6 +65,7 @@ class ProblemDef:
     minimize: bool = True
     term: Optional[Callable[[np.ndarray, int], np.ndarray]] = None
     gamma: Optional[Callable[[np.ndarray], np.ndarray]] = None  # None = id
+    data: Optional[Callable[[int], np.ndarray]] = None
 
     @property
     def separable(self) -> bool:
@@ -64,7 +74,10 @@ class ProblemDef:
 
     def f(self, vals) -> torch.Tensor:
         """Convenience single/batch evaluation over a trailing V axis."""
-        return self.fn(torch.as_tensor(vals, dtype=torch.float32))
+        v = torch.as_tensor(vals, dtype=torch.float32)
+        if self.data is None:
+            return self.fn(v)
+        return self.fn(v, torch.from_numpy(self.data(v.shape[-1])))
 
 
 PROBLEMS: Dict[str, ProblemDef] = {}
@@ -220,6 +233,67 @@ register_problem(ProblemDef(
     name="ackley", fn=_ackley, domain=(-32.768, 32.768),
 ))
 
+# --- CEC 2017 F5's form: shifted and rotated Rastrigin ---------------------
+
+SR_SHRINK = 0.0512      # cec17_func.cpp's sr_func: 5.12 / 100
+
+
+def _fixed_dot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Σ_k a[..., k] * b[..., k] summed left to right, elementwise in
+    float64: no library reduction, whose order may differ by machine."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
+def rastrigin_sr_data64(v: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(o [V], M [V, V]) in float64: a synthetic shift and rotation seeded
+    in the repository, not the suite's `shift_data_5.txt` and `M_5_D*.txt`.
+    ``rng = default_rng([2017, 5, V])``; o ~ U(-80, 80)^V; A ~ U(-1,
+    1)^(V x V); M is modified Gram-Schmidt over A's rows, with every sum
+    left to right, so it uses only +, -, *, / and sqrt, which IEEE rounds
+    exactly: every machine makes the same bytes."""
+    rng = np.random.default_rng([2017, 5, v])
+    o = rng.uniform(-80.0, 80.0, v)
+    m = rng.uniform(-1.0, 1.0, (v, v))
+    for j in range(v):
+        m[j] = m[j] / np.sqrt(_fixed_dot(m[j], m[j]))
+        rest = m[j + 1:]
+        rest -= _fixed_dot(rest, m[j])[:, None] * m[j]
+    return o, m
+
+
+def rastrigin_sr_data(v: int) -> np.ndarray:
+    """`rastrigin_sr`'s data for V as the program carries it: o then M's
+    rows, cast to float32, one array of V + V^2 values."""
+    o, m = rastrigin_sr_data64(v)
+    return np.concatenate([o, m.ravel()]).astype(np.float32)
+
+
+def _rastrigin_sr(v, d):
+    n = v.shape[-1]
+    o, m = d[:n], d[n:].reshape(n, n)
+    y = (v - o) * SR_SHRINK
+    z = y[..., 0:1] * m[:, 0]
+    for j in range(1, n):
+        z = z + y[..., j:j + 1] * m[:, j]
+    return vsum(z * z - 10.0 * torch.cos(2.0 * np.pi * z) + 10.0) + 500.0
+
+
+# CEC 2017 F5 (Awad et al. 2016, cec17_func.cpp) at V = D, in float32, left
+# to right:  y_j = (x_j - o_j) * 0.0512;  z_i = (...(y_0 M_i0 + y_1 M_i1) +
+# ...) + y_{V-1} M_i,V-1;  f = Σ_i (z_i^2 - 10 cos(2π z_i) + 10) + 500, on
+# x in [-100, 100]^V.  The shift o and rotation M are `rastrigin_sr_data`'s
+# seeded ones, not the suite's files.  Not separable: arith and kernel only.
+register_problem(ProblemDef(
+    name="rastrigin_sr", fn=_rastrigin_sr, domain=(-100.0, 100.0),
+    min_vars=2, data=rastrigin_sr_data,
+))
+
+# problems of the port that the JAX package's registry does not have
+PORT_ONLY = frozenset({"rastrigin_sr"})
+
 # the built-in definitions, by name: the fused kernel implements exactly these
 BUILTIN: Dict[str, ProblemDef] = dict(PROBLEMS)
 
@@ -328,7 +402,9 @@ class FitnessProgram:
     reference executor and by the fused kernel's plain version; the CUDA
     kernel repeats it for the built-in problems.  ``lut_stage`` is the
     faithful ROM pipeline (separable problems only).  ``fitness(mode)``
-    dispatches for the executors.
+    dispatches for the executors.  ``data`` is the problem's float32 data
+    (None for a problem without), which ``stage`` hands to ``fn`` and the
+    kernels read, each from `device_data`.
     """
 
     name: str
@@ -339,6 +415,7 @@ class FitnessProgram:
     fn: Callable[[torch.Tensor], torch.Tensor]
     supports_lut: bool
     tables: Optional[LutTables] = None   # synthesized only for mode='lut'
+    data: Optional[np.ndarray] = None    # float32, the problem's data
 
     @property
     def modes(self) -> Tuple[str, ...]:
@@ -379,6 +456,22 @@ class FitnessProgram:
                                for a in self.decode_consts())
         return cache[key]
 
+    @property
+    def data_bytes(self) -> int:
+        """Bytes of the problem's data (0 without)."""
+        return 0 if self.data is None else int(self.data.nbytes)
+
+    def device_data(self, device) -> Optional[torch.Tensor]:
+        """`data` as a tensor on `device`, made once per device; None for a
+        problem without data."""
+        if self.data is None:
+            return None
+        cache = self.__dict__.setdefault("_data", {})
+        key = str(device)
+        if key not in cache:
+            cache[key] = torch.from_numpy(self.data).to(device)
+        return cache[key]
+
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         """int32 bits (..., V) -> f32 values (..., V), per-variable box."""
         lo, span = self.device_consts(x.device)
@@ -387,7 +480,10 @@ class FitnessProgram:
 
     def stage(self, x: torch.Tensor) -> torch.Tensor:
         """The arith FFM stage: int32 bits (..., V) -> f32 (...,)."""
-        return self.fn(self.decode(x)).to(torch.float32)
+        if self.data is None:
+            return self.fn(self.decode(x)).to(torch.float32)
+        return self.fn(self.decode(x),
+                       self.device_data(x.device)).to(torch.float32)
 
     def lut_stage(self, x: torch.Tensor) -> torch.Tensor:
         """The faithful ROM pipeline: int32 bits (..., V) -> int32 (...,)."""
@@ -414,7 +510,8 @@ def compile_program(problem: Optional[str] = None,
     blackbox ``(N, V) -> (N,)`` + bounds into a :class:`FitnessProgram`.
 
     LUT ROMs are synthesized only when mode='lut'; ``supports_lut`` still
-    reports availability either way.
+    reports availability either way.  A problem's data is made here, in a
+    ``fitness.data`` span (counter ``data_bytes``).
     """
     if (problem is None) == (fitness is None):
         raise ValueError("pass exactly one of problem= or fitness=")
@@ -430,11 +527,17 @@ def compile_program(problem: Optional[str] = None,
         check_mode(pdef, mode)
         tables = (build_tables(pdef, bits_per_var, v)
                   if mode == "lut" else None)
+        data = None
+        if pdef.data is not None:
+            with TR.span("fitness.data") as sp:
+                data = np.ascontiguousarray(pdef.data(v), np.float32)
+                sp.count("data_bytes", int(data.nbytes))
         return FitnessProgram(name=pdef.name, n_vars=v,
                               bits_per_var=bits_per_var,
                               domains=(pdef.domain,) * v,
                               minimize=minimize, fn=pdef.fn,
-                              supports_lut=pdef.separable, tables=tables)
+                              supports_lut=pdef.separable, tables=tables,
+                              data=data)
 
     if bounds is None:
         raise ValueError("blackbox fitness requires bounds=")

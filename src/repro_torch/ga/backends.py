@@ -422,12 +422,21 @@ class SegmentClock:
         self.last_end = end
 
 
+def count_data_bytes(sp, program) -> None:
+    """A traced segment's counter `ffm_data_bytes`: the bytes of problem
+    data its fitness stage reads (`FitnessProgram.data_bytes`), for a
+    problem with data only."""
+    if program is not None and program.data is not None:
+        sp.count("ffm_data_bytes", program.data_bytes)
+
+
 class SingleTopology(Topology):
     """One population; `n_repeats` independent replicas ride the executor's
     stack axis.  A segment is exactly one executor block; its result is
     packed as one interval of one island.  Traced: `topology.segment` (on a
-    card `SegmentClock`'s events and counts) around `executor.launch`,
-    `segment.fold` (the pack's enqueue), `segment.wait`, `segment.result`."""
+    card `SegmentClock`'s events and counts; `ffm_data_bytes` for a problem
+    with data) around `executor.launch`, `segment.fold` (the pack's
+    enqueue), `segment.wait`, `segment.result`."""
 
     name = "single"
 
@@ -457,6 +466,7 @@ class SingleTopology(Topology):
 
     def segment(self, state, gens: int) -> Segment:
         with TR.span("topology.segment") as sp:
+            count_data_bytes(sp, self.executor.program)
             mark = self.clock.start(sp, K.LAUNCHES)
             state, by, bx, tb, tm = self._runner(gens)(state)
             with TR.span("segment.fold"):
@@ -641,26 +651,31 @@ class IslandRingTopology(Topology):
                     f"spec (candidates: {[c['mode'] for c in cands]})"
                     + hint)
         n, v, p = self.cfg.n, self.cfg.v, self.cfg.p
+        prog = self.executor.program
+        data = K.data_words(prog)
         if plan["mode"] == "streamed":
             if self.stream_tile_islands is not None:
                 t = int(self.stream_tile_islands)
                 reason = K.streamed_tile_reason(
-                    self.cfg, spec.n_repeats, self.i_local, t, self.device)
+                    self.cfg, spec.n_repeats, self.i_local, t, self.device,
+                    prog)
                 if reason is not None:
                     raise ValueError(reason)
                 plan["tile_islands"] = t
-            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p)
+            plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p, 32,
+                                                             data)
             plan["population_bits"] = 32
         elif plan["mode"].startswith("resident"):
-            plan["smem_estimate_bytes"] = K.resident_block_bytes(self.cfg)
+            plan["smem_estimate_bytes"] = K.resident_block_bytes(self.cfg,
+                                                                 prog)
             plan["population_bits"] = K.population_bits(self.cfg.c)
             if plan["mode"] != "resident-free":
                 plan["clusters_at_once"] = K.clusters_at_once(
-                    self.cfg, self.i_local, self.device)
+                    self.cfg, self.i_local, self.device, prog)
         elif (self.executor.name == "fused"
-              and K.block_reason(self.cfg, self.executor.program) is None):
+              and K.block_reason(self.cfg, prog) is None):
             # (K1's global form keeps no replica in shared memory)
-            plan["smem_estimate_bytes"] = K.smem_bytes(n, v, p)
+            plan["smem_estimate_bytes"] = K.smem_bytes(n, v, p, data)
             plan["population_bits"] = 32
         return plan
 
@@ -942,8 +957,9 @@ class IslandRingTopology(Topology):
         and `population_bits` where the plan's kernel holds its population
         in shared memory; counters `intervals` and `migrations`, and on a
         card for a K2 ring `cluster_waves`, its launches times the waves of
-        clusters each takes; off a mesh on a card also `SegmentClock`'s
-        timing events and launch counts), a
+        clusters each takes; `ffm_data_bytes` for a problem with data; off
+        a mesh on a card also `SegmentClock`'s timing events and launch
+        counts), a
         `topology.launch` span a runner call, a `segment.fold` span around
         the fold's enqueue (counter `intervals_folded`), `segment.wait`
         and `segment.result` (`read_segment`)."""
@@ -960,6 +976,7 @@ class IslandRingTopology(Topology):
         with TR.span("topology.segment", **attrs) as sp:
             sp.count("intervals", epochs)
             sp.count("migrations", migrations)
+            count_data_bytes(sp, self.executor.program)
             at_once = self.plan.get("clusters_at_once")
             if at_once:
                 sp.count("cluster_waves", len(sched) * self.n_shards

@@ -114,6 +114,18 @@
 //     30 at once and ran a second wave of 21.  Every operation sees the
 //     same values in the same order, so the state is the 32-bit layout's bit
 //     for bit.  K1 and K3 keep 32-bit words.
+//   * rastrigin_sr (CEC 2017 F5's form) carries data: a shift o [V] and a
+//     rotation M [V, V], and an evaluation is a V x V mat-vec.  Its kernels
+//     are builds of their own (kData), so the other problems' builds keep
+//     their registers and blocks: the data first in the block (M's rows at
+//     a stride of V rounded up to 4, then o; 3,968 B at V = 30, a K2 block
+//     of 55,868 B at the island cell's shape, four still an SM), and a
+//     pair's 2 x 32 shifted values in registers (`ffm_sr`), under
+//     __launch_bounds__(512, 1), so up to 128 registers a thread, which at
+//     N = 256 still lets four blocks of 128 threads share an SM.  A row of
+//     M is one 16-byte broadcast load for the pair's two sums.  V > 32 has
+//     no such build: the wrappers route it to K1's global form and the
+//     program's PyTorch stage.
 //
 // K2's ring.  The TPU kernel keeps every island of a replica group in one
 // VMEM block; a Hopper block is far smaller, so K2 gives each island its own
@@ -164,7 +176,7 @@
 // Numerics.  Built with -fmad=false and the default IEEE division and
 // square root, so each float operation rounds once, in the order the plain
 // PyTorch version (repro_torch/core/fitness.py) evaluates it: cubes as
-// x*(x*x), sums over V left to right.  Integer work is exact.  A slot of the
+// x*(x*x), sums over V left to right (rastrigin_sr's mat-vec too).  Integer work is exact.  A slot of the
 // migration rule is the first occurrence of the block's best (worst) value,
 // or N — no slot — when any fitness of the island is NaN, the masked-iota
 // rule of repro_torch/core/islands.py.
@@ -187,7 +199,22 @@ constexpr int kMaxCluster = 8;       // portable thread-block cluster size
 constexpr int kMaxDevices = 64;
 constexpr int kPaperSteps = 3;       // clocks a draw built in as a constant
 
-enum Problem { kF1 = 0, kF2, kF3, kSphere, kRastrigin, kRosenbrock, kAckley };
+enum Problem {
+  kF1 = 0, kF2, kF3, kSphere, kRastrigin, kRosenbrock, kAckley, kRastriginSR
+};
+
+// rastrigin_sr holds an individual's V shifted values in registers: at most
+// this many variables (the wrappers route a larger V to the PyTorch stage)
+constexpr int kSRMaxVars = 32;
+
+// rastrigin_sr's data in shared memory: M's V rows at a row stride of V
+// rounded up to 4 words (16-byte loads), then o, the pad words zero.
+__host__ __device__ inline int sr_ld(int v) { return (v + 3) & ~3; }
+
+// Words of problem data a block holds in shared memory (0: none).
+__host__ __device__ inline int data_words(int problem, int v) {
+  return problem == kRastriginSR ? sr_ld(v) * (v + 1) : 0;
+}
 
 // The GA's shape and operator constants; p is min(P, N).  mut_global: the
 // mutation rows below P stay in global memory (`Island::gmut`) because
@@ -212,6 +239,7 @@ struct Stack {
   uint32_t* best_x;          // [K, V]   (track_best)
   const float* lo;           // [V] decode offsets
   const float* span;         // [V] decode steps
+  const float* data;         // the problem's data (o [V], M [V, V]), or null
 };
 
 // One island's state in dynamic shared memory.  x and y are double
@@ -241,6 +269,8 @@ struct Island {
                      // the idle one, the store the whole as its table
   uint32_t* elite;   // [V] epoch kernels: the elite a neighbour reads
   int* slot;         // [1] epoch kernels: a slot broadcast to the block
+  float* data;       // rastrigin_sr's builds: its data (`load_sr_data`),
+                     // first in the block
   __device__ __forceinline__ W* X(int b) const { return b ? x1 : x0; }
   __device__ __forceinline__ float* Y(int b) const { return b ? y1 : y0; }
   __device__ __forceinline__ float* rval(int b) const { return red + 64 * b; }
@@ -250,9 +280,12 @@ struct Island {
 };
 
 // Words of a block of kernel `which` (0: K1; 1, 2: K2, K3) with population
-// words of `bits` bits (16: K2's 16-bit layout), without the mutation rows.
-__host__ inline size_t base_words(int which, int n, int v, int bits) {
-  return (size_t)n * v * bits / 16  // population, two buffers
+// words of `bits` bits (16: K2's 16-bit layout) and `dw` words of problem
+// data, without the mutation rows.
+__host__ inline size_t base_words(int which, int n, int v, int bits,
+                                  int dw) {
+  return (size_t)dw                 // problem data
+         + (size_t)n * v * bits / 16  // population, two buffers
          + 2 * (size_t)n            // fitness, two buffers
          + 2 * (size_t)n            // selection bank
          + (size_t)v * (n / 2)      // crossover bank
@@ -264,8 +297,8 @@ __host__ inline size_t base_words(int which, int n, int v, int bits) {
 // Whether the mutation rows below P stay in global memory: they do when
 // they would not fit beside the rest.
 __host__ inline bool rows_in_global(int which, int n, int v, int p,
-                                   int bits) {
-  return 4 * (base_words(which, n, v, bits) + (size_t)v * p) >
+                                   int bits, int dw) {
+  return 4 * (base_words(which, n, v, bits, dw) + (size_t)v * p) >
          (size_t)kSmemLimit;
 }
 
@@ -274,15 +307,19 @@ __host__ inline int threads_for(int n) {
   return pairs < 32 ? 32 : (pairs > kMaxThreads ? kMaxThreads : pairs);
 }
 
-// The block's layout for island `k` of the stack.
-template <class W>
+// The block's layout for island `k` of the stack.  kData (rastrigin_sr's
+// builds): the problem's data first, 16-byte aligned, then the rest as in
+// the other builds.
+template <class W, bool kData>
 __device__ __forceinline__ Island<W> carve(uint32_t* smem, const Shape& S,
                                            uint32_t* mut_out, size_t k) {
-  // x and sel first: their pair accesses are vector loads and stores (sel
-  // stays 8-byte aligned, as N is even)
+  // x and sel first (after the data, an even number of words): their pair
+  // accesses are vector loads and stores (sel stays 8-byte aligned, as N
+  // is even)
   const int n = S.n, v = S.v, p = S.mut_global ? 0 : S.p;
   Island<W> s;
-  s.x0 = (W*)smem;
+  s.data = (float*)smem;
+  s.x0 = (W*)(smem + (kData ? data_words(kRastriginSR, v) : 0));
   s.x1 = s.x0 + (size_t)n * v;
   s.sel = (uint32_t*)(s.x1 + (size_t)n * v);
   s.y0 = (float*)(s.sel + 2 * n);
@@ -396,14 +433,87 @@ __device__ __forceinline__ float ackley_of(float s1, float s2, float fv) {
          2.718281828459045f;
 }
 
+// rastrigin_sr (CEC 2017 F5's form) of the K individuals i[0..K) into
+// y[0..K), in the plain version's order (repro_torch/core/fitness.py):
+// y_j = (x_j - o_j) * 0.0512, z_r = (...(y_0 M_r0 + y_1 M_r1) + ...) +
+// y_{V-1} M_r,V-1 from left to right, a product and a sum each rounded,
+// then the Rastrigin sum of the z_r and 500.  `data` is shared memory in
+// `load_sr_data`'s layout.  An individual's V shifted values live in
+// registers, zero past V (kSRMaxVars of them: the wrappers refuse a larger
+// V); a row of M is read 4 words at a time, one broadcast load for the K
+// individuals, and the pad words past V add 0 * 0 to z, which changes no
+// z but the sign of a zero sum, which neither z * z nor cos sees.
+template <int K, class D>
+__device__ __forceinline__ void ffm_sr(const D& d, const int (&i)[K], int v,
+                                       const float* data, float (&y)[K]) {
+  const int ld = sr_ld(v);
+  const float* o = data + (size_t)v * ld;
+  float sv[K][kSRMaxVars];
+#pragma unroll
+  for (int j = 0; j < kSRMaxVars; ++j) {
+    if (j < v) {
+      const float oj = o[j];
+#pragma unroll
+      for (int k = 0; k < K; ++k) sv[k][j] = (d(i[k], j) - oj) * 0.0512f;
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) sv[k][j] = 0.0f;
+    }
+  }
+  float s[K];
+  for (int r = 0; r < v; ++r) {
+    const float4* m = (const float4*)(data + (size_t)r * ld);
+    float z[K];
+#pragma unroll
+    for (int q = 0; q < kSRMaxVars / 4; ++q) {
+      if (4 * q >= v) break;
+      const float4 w = m[q];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float t = sv[k][4 * q] * w.x;
+        z[k] = q ? z[k] + t : t;
+        z[k] = z[k] + sv[k][4 * q + 1] * w.y;
+        z[k] = z[k] + sv[k][4 * q + 2] * w.z;
+        z[k] = z[k] + sv[k][4 * q + 3] * w.w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float t = rastrigin_term(z[k]);
+      s[k] = r ? s[k] + t : t;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) y[k] = s[k] + 500.0f;
+}
+
+// rastrigin_sr's data from global memory (o [V], then M's rows [V, V]) into
+// `dst` in shared memory: M's rows at stride sr_ld(v), then o, the pad
+// words zero.  Every thread of the block calls it; a barrier must follow.
+__device__ __forceinline__ void load_sr_data(float* dst, const float* src,
+                                             int v) {
+  const int ld = sr_ld(v), words = ld * (v + 1);
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int r = e / ld, j = e - r * ld;
+    dst[e] = j >= v ? 0.0f : r < v ? src[v + (size_t)r * v + j] : src[j];
+  }
+}
+
 // The FFM of the K individuals i[0..K) into y[0..K): each follows the plain
 // version's operation order, and the K evaluations run interleaved, step by
 // step, so their dependency chains overlap (K = 2: a thread's pair).  `D`
 // reads variable j of individual i: `Decoder` in the one-block kernels'
-// shared memory, `TileDecoder` in the rows form of `ga_ffm`.
-template <int K, class D>
+// shared memory, `TileDecoder` in the rows form of `ga_ffm`.  kData:
+// rastrigin_sr's builds, whose problem is that one, with its data in
+// shared memory; the other builds take the problem at run time.
+template <int K, bool kData = false, class D>
 __device__ __forceinline__ void ffm(int problem, const D& d,
-                                    const int (&i)[K], int v, float (&y)[K]) {
+                                    const int (&i)[K], int v, float (&y)[K],
+                                    const float* data = nullptr) {
+  if constexpr (kData) {
+    ffm_sr<K>(d, i, v, data, y);
+    return;
+  }
   switch (problem) {
     case kF1:
 #pragma unroll
@@ -481,13 +591,14 @@ __device__ __forceinline__ void ffm(int problem, const D& d,
 }
 
 // Fitness of individual i of the variable-major population x.
-template <class W>
+template <bool kData, class W>
 __device__ __forceinline__ float fitness(const Island<W>& s, const Shape& S,
                                          const W* x, int i) {
   const int one[1] = {i};
   float y[1];
-  ffm<1>(S.problem, Decoder<W>{x, S.n, (1u << S.c) - 1u, s.lo, s.span}, one,
-         S.v, y);
+  ffm<1, kData>(S.problem,
+                Decoder<W>{x, S.n, (1u << S.c) - 1u, s.lo, s.span}, one,
+                S.v, y, s.data);
   return y[0];
 }
 
@@ -617,8 +728,9 @@ void take_best(const Island<W>& s, const Shape& S, uint32_t* best_x,
 }
 
 // Copy island `k` of the stack into shared memory (the population
-// transposed to [V][N] in buffer 0) and reset the best fold.
-template <class W>
+// transposed to [V][N] in buffer 0; kData: the problem's data too) and
+// reset the best fold.
+template <bool kData, class W>
 __device__ __forceinline__
 void load_island(const Island<W>& s, const Stack& g, const Shape& S,
                  size_t k) {
@@ -646,6 +758,7 @@ void load_island(const Island<W>& s, const Stack& g, const Shape& S,
     s.bx[j] = 0u;
   }
   if (tid == 0) *s.by = worst_value(S.minimize != 0);
+  if constexpr (kData) load_sr_data(s.data, g.data, v);
   __syncthreads();
 }
 
@@ -700,7 +813,7 @@ void store_island(const Island<W>& s, const Stack& g, const Shape& S,
 // warp partials of y[buf]; ends on a block barrier.  `row` < 0: every row;
 // 0 <= row < n: that row alone (a spliced row); row >= n: none, only the
 // partials.
-template <class W>
+template <bool kData, class W>
 __device__ __forceinline__
 void evaluate(const Island<W>& s, const Shape& S, int buf, bool track_best,
               int row) {
@@ -708,7 +821,8 @@ void evaluate(const Island<W>& s, const Shape& S, int buf, bool track_best,
   float bv = worst_value(minimize);
   int bi = 0x7fffffff;
   for (int i = threadIdx.x; i < S.n; i += blockDim.x) {
-    if (row < 0 || i == row) s.Y(buf)[i] = fitness(s, S, s.X(buf), i);
+    if (row < 0 || i == row)
+      s.Y(buf)[i] = fitness<kData>(s, S, s.X(buf), i);
     if (takes(s.Y(buf)[i], i, bv, bi, minimize)) {
       bv = s.Y(buf)[i];
       bi = i;
@@ -732,11 +846,12 @@ __device__ __forceinline__ void store_pair(uint16_t* p, uint32_t a,
 }
 
 // One generation of the island in shared memory, from buffer `cur` into
-// cur ^ 1, with kSteps LFSR clocks a draw (0: S.steps, read at run time).
-// Every thread of the block must call it; it ends on the block barrier
-// after which X(cur ^ 1) holds the offspring and, with `eval`, Y(cur ^ 1)
-// their fitness (and, with track_best, its warp partials).
-template <int kSteps, class W>
+// cur ^ 1, with kSteps LFSR clocks a draw (0: S.steps, read at run time);
+// kData: rastrigin_sr's build.  Every thread of the block must call it; it
+// ends on the block barrier after which X(cur ^ 1) holds the offspring
+// and, with `eval`, Y(cur ^ 1) their fitness (and, with track_best, its
+// warp partials).
+template <int kSteps, class W, bool kData>
 __device__ __forceinline__
 void generation(const Island<W>& s, const Shape& S, bool track_best,
                 bool eval, int cur) {
@@ -799,7 +914,8 @@ void generation(const Island<W>& s, const Shape& S, bool track_best,
     if (eval) {
       const int ab[2] = {a, b};
       float y[2];
-      ffm<2>(S.problem, Decoder<W>{xn, n, mask, s.lo, s.span}, ab, v, y);
+      ffm<2, kData>(S.problem, Decoder<W>{xn, n, mask, s.lo, s.span}, ab, v,
+                    y, s.data);
       *(float2*)(yn + a) = make_float2(y[0], y[1]);
       if (takes(y[0], a, bv, bi, minimize)) {
         bv = y[0];
@@ -819,17 +935,20 @@ void generation(const Island<W>& s, const Shape& S, bool track_best,
 // K1: `gens` generations of each island of the stack, one block an island.
 // ---------------------------------------------------------------------------
 
-template <int kSteps>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+// kData: rastrigin_sr's builds, whose pair holds 2 x kSRMaxVars values in
+// registers; one block an SM may take 128 a thread.
+template <int kSteps, bool kData>
+__global__ void __launch_bounds__(kMaxThreads, kData ? 1 : kMinBlocks)
 ga_generation(const Stack g, const Shape S, int gens, int track_best) {
   extern __shared__ uint32_t smem[];
-  const Island<uint32_t> s = carve<uint32_t>(smem, S, g.mut_out, blockIdx.x);
+  const Island<uint32_t> s =
+      carve<uint32_t, kData>(smem, S, g.mut_out, blockIdx.x);
   const bool tb = track_best != 0;
-  load_island(s, g, S, blockIdx.x);
-  evaluate(s, S, 0, tb, -1);
+  load_island<kData>(s, g, S, blockIdx.x);
+  evaluate<kData>(s, S, 0, tb, -1);
   int cur = 0;
   for (int t = 0; t < gens; ++t, cur ^= 1)
-    generation<kSteps>(s, S, tb, t + 1 < gens, cur);
+    generation<kSteps, uint32_t, kData>(s, S, tb, t + 1 < gens, cur);
   // y: the fitness of the last pre-update population
   store_island(s, g, S, blockIdx.x, s.X(cur), s.Y(cur ^ 1), gens * S.steps,
                tb);
@@ -881,17 +1000,17 @@ int ring_step(const Island<W>& s, const Shape& S, const Epoch& E, int cur) {
   return splice ? w : n;
 }
 
-template <int kSteps, class W>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+template <int kSteps, class W, bool kData>
+__global__ void __launch_bounds__(kMaxThreads, kData ? 1 : kMinBlocks)
 ga_epoch(const Stack g, const Shape S, const Epoch E) {
   extern __shared__ uint32_t smem[];
-  const Island<W> s = carve<W>(smem, S, g.mut_out, blockIdx.x);
-  load_island(s, g, S, blockIdx.x);
-  evaluate(s, S, 0, true, -1);
+  const Island<W> s = carve<W, kData>(smem, S, g.mut_out, blockIdx.x);
+  load_island<kData>(s, g, S, blockIdx.x);
+  evaluate<kData>(s, S, 0, true, -1);
   int cur = 0;
   for (int it = 0; it < E.intervals; ++it) {
     for (int t = 0; t < E.migrate_every; ++t, cur ^= 1)
-      generation<kSteps>(s, S, true, true, cur);
+      generation<kSteps, W, kData>(s, S, true, true, cur);
     // the interval's best, then a fresh fold for the next interval
     if (fold_warp()) {
       const size_t o = (size_t)it * gridDim.x + blockIdx.x;
@@ -899,7 +1018,7 @@ ga_epoch(const Stack g, const Shape S, const Epoch E) {
     }
     if (E.migrate) {
       const int w = ring_step(s, S, E, cur);
-      if (it + 1 < E.intervals) evaluate(s, S, cur, true, w);
+      if (it + 1 < E.intervals) evaluate<kData>(s, S, cur, true, w);
     }
   }
   // y: the final interval's migration fitness (pre-splice)
@@ -955,8 +1074,8 @@ void send_elite(const Island<W>& s, const Shape& S, int cur, int b, int w,
   if (threadIdx.x == 0) *worst = w;
 }
 
-template <int kSteps>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+template <int kSteps, bool kData>
+__global__ void __launch_bounds__(kMaxThreads, kData ? 1 : kMinBlocks)
 ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
   extern __shared__ uint32_t smem[];
   const int n = S.n, v = S.v, tid = threadIdx.x, nt = blockDim.x;
@@ -977,7 +1096,8 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
       const size_t k = (size_t)group * T.islands + i;
       const size_t from = (size_t)group * T.islands +
                           (i + T.islands - 1) % T.islands;
-      const Island<uint32_t> s = carve<uint32_t>(smem, S, g.mut_out, k);
+      const Island<uint32_t> s = carve<uint32_t, kData>(smem, S, g.mut_out,
+                                                        k);
       // from the second interval on, a walking block reloads what it
       // stored (a value, not a reference: no stack frame)
       Stack src = g;
@@ -988,7 +1108,7 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
         src.mut_in = g.mut_out;
       }
       if (!keep || it == 0) {
-        load_island(s, src, S, k);
+        load_island<kData>(s, src, S, k);
         if (ring && it > 0) {       // the splice pending since the last
           const int w = T.worst[k]; // interval
           const uint32_t* e = T.elite + ((size_t)((it - 1) & 1) * all +
@@ -998,11 +1118,11 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
               s.x0[(size_t)j * n + w] = __ldcg(e + j);
           __syncthreads();
         }
-        evaluate(s, S, 0, true, -1);
+        evaluate<kData>(s, S, 0, true, -1);
         cur = 0;
       }
       for (int e = 0; e < T.migrate_every; ++e, cur ^= 1)
-        generation<kSteps>(s, S, true, true, cur);
+        generation<kSteps, uint32_t, kData>(s, S, true, true, cur);
       // the interval's best, then a fresh fold for the next interval
       if (fold_warp()) {
         const size_t o = (size_t)it * all + k;
@@ -1027,7 +1147,7 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
           for (int j = tid; j < v; j += nt)
             s.X(cur)[(size_t)j * n + w] = __ldcg(e + j);
         __syncthreads();            // the row is whole before it is read
-        if (it + 1 < T.intervals) evaluate(s, S, cur, true, w);
+        if (it + 1 < T.intervals) evaluate<kData>(s, S, cur, true, w);
       }
     }
     if (!keep && ring) group_barrier(arrived, (unsigned)(it + 1) * tiles);
@@ -1035,7 +1155,7 @@ ga_streamed_epoch(const Stack g, const Shape S, const Streamed T) {
   if (keep) {
     // y: the final interval's migration fitness (pre-splice)
     const size_t k = (size_t)group * T.islands + first;
-    const Island<uint32_t> s = carve<uint32_t>(smem, S, g.mut_out, k);
+    const Island<uint32_t> s = carve<uint32_t, kData>(smem, S, g.mut_out, k);
     store_island(s, g, S, k, s.X(cur), s.Y(cur),
                  T.intervals * T.migrate_every * S.steps, false);
   } else if (ring) {
@@ -1320,20 +1440,26 @@ __device__ __forceinline__ void ffm_terms(uint32_t* w, float* t, int tile,
 // y[row]: the FFM of each row of x [rows, v] (rows = R * N), a block the
 // tile of `tile` rows from blockIdx.x * tile, in the steps of the note
 // above.  K > 0: the rows form (tile = 256 K, chunk = v, the problem at run
-// time); K = 0: the spread form for problem P (tile a power of two <= 256,
-// chunks of `chunk` variables).  The forms without cosf hold 8 blocks an SM.
+// time; P = kRastriginSR: that problem, K = 1, its `data` first in the
+// block); K = 0: the spread form for problem P (tile a power of two <= 256,
+// chunks of `chunk` variables).  The forms without cosf hold 8 blocks an
+// SM; rastrigin_sr's, with 2 x kSRMaxVars values a thread, 2.
 template <int K, int P>
 __global__ void __launch_bounds__(kGlobalThreads,
-                                  K == 0 && (P == kSphere ||
-                                             P == kRosenbrock) ? 8 : 4)
+                                  P == kRastriginSR ? 2
+                                  : K == 0 && (P == kSphere ||
+                                               P == kRosenbrock) ? 8 : 4)
 ga_ffm(const uint32_t* x, float* y, const float* lo, const float* span,
-       size_t rows, int v, int c, int problem, int tile, int chunk) {
+       size_t rows, int v, int c, int problem, int tile, int chunk,
+       const float* data) {
   extern __shared__ uint32_t smem[];
   constexpr bool spread = K == 0;
+  constexpr bool kData = P == kRastriginSR;
   const int stride = ffm_stride(chunk, spread);
-  uint32_t* w = smem;                                   // the words
-  float* t = (float*)(smem + (size_t)tile * stride);    // the terms
-  float* tlo = (float*)(smem + (size_t)(spread ? 2 : 1) * tile * stride);
+  float* sdata = (float*)smem;                          // kData: the data
+  uint32_t* w = smem + (kData ? data_words(kRastriginSR, v) : 0);  // words
+  float* t = (float*)(w + (size_t)tile * stride);       // the terms
+  float* tlo = (float*)(w + (size_t)(spread ? 2 : 1) * tile * stride);
   float* tspan = tlo + chunk + 1;
   const size_t row0 = (size_t)blockIdx.x * tile, left = rows - row0;
   const int here = left < (size_t)tile ? (int)left : tile;
@@ -1341,13 +1467,15 @@ ga_ffm(const uint32_t* x, float* y, const float* lo, const float* span,
   const int tid = threadIdx.x;
   const uint32_t* src = x + row0 * v;
   if constexpr (K > 0) {
+    if constexpr (kData) load_sr_data(sdata, data, v);
     ffm_load(src, here, v, v, w, stride, lo, span, tlo, tspan);
     __syncthreads();
     int i[K];
     float out[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) i[k] = tid + k * kGlobalThreads;
-    ffm<K>(problem, TileDecoder{w, stride, mask, tlo, tspan}, i, v, out);
+    ffm<K, kData>(problem, TileDecoder{w, stride, mask, tlo, tspan}, i, v,
+                  out, sdata);
 #pragma unroll
     for (int k = 0; k < K; ++k)
       if (i[k] < here) y[row0 + i[k]] = out[k];
@@ -1426,10 +1554,10 @@ template <int K, int P>
 cudaError_t ffm_run(const uint32_t* x, float* y, const float* lo,
                     const float* span, size_t rows, int v, int c,
                     int problem, int tile, int chunk, size_t smem,
-                    cudaStream_t s) {
+                    cudaStream_t s, const float* data = nullptr) {
   const unsigned blocks = (unsigned)((rows + tile - 1) / tile);
-  ga_ffm<K, P><<<blocks, kGlobalThreads, smem, s>>>(x, y, lo, span, rows, v,
-                                                    c, problem, tile, chunk);
+  ga_ffm<K, P><<<blocks, kGlobalThreads, smem, s>>>(
+      x, y, lo, span, rows, v, c, problem, tile, chunk, data);
   return cudaGetLastError();
 }
 
@@ -1696,7 +1824,7 @@ bool bad_layout(int which, int bits) {
 // blocks can share an SM.  Setting an attribute twice does no harm, so two
 // threads that race to the first launch need no lock.
 cudaError_t allow_smem(const void* kernel, int which) {
-  static std::atomic<bool> allowed[8][kMaxDevices];
+  static std::atomic<bool> allowed[16][kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1715,49 +1843,69 @@ cudaError_t allow_smem(const void* kernel, int which) {
 
 using EpochKernel = void (*)(const Stack, const Shape, const Epoch);
 
-template <int kSteps>
+template <int kSteps, bool kData>
 EpochKernel epoch_built(int bits) {
-  return bits == 16 ? ga_epoch<kSteps, uint16_t> : ga_epoch<kSteps, uint32_t>;
+  return bits == 16 ? ga_epoch<kSteps, uint16_t, kData>
+                    : ga_epoch<kSteps, uint32_t, kData>;
 }
 
-template <int kSteps>
+template <int kSteps, bool kData>
 const void* kernel_built(int which, int bits) {
   switch (which) {
-    case 0: return (const void*)ga_generation<kSteps>;
-    case 1: return (const void*)epoch_built<kSteps>(bits);
-    case 2: return (const void*)ga_streamed_epoch<kSteps>;
+    case 0: return (const void*)ga_generation<kSteps, kData>;
+    case 1: return (const void*)epoch_built<kSteps, kData>(bits);
+    case 2: return (const void*)ga_streamed_epoch<kSteps, kData>;
   }
   return nullptr;
 }
 
+// Whether a problem takes the builds with problem data (rastrigin_sr's),
+// and whether that build cannot take V: it holds an individual's V values
+// in registers, and reads its data through the pointer it is given.
+bool has_data(int problem) { return problem == kRastriginSR; }
+
+bool bad_data(int problem, int v, const void* data) {
+  return has_data(problem) && (v < 2 || v > kSRMaxVars || data == nullptr);
+}
+
 // The build of kernel `which` (0: K1, 1: K2, 2: K3) a shape takes at
-// population layout `bits`: the paper's clocks a draw as a constant
-// (kPaperSteps) where the mutation rows below P stay in shared memory, else
-// the run-time form (0).
-int form_of(int which, int n, int v, int p, int steps, int bits) {
+// population layout `bits` for `problem`: the paper's clocks a draw as a
+// constant (kPaperSteps) where the mutation rows below P stay in shared
+// memory, else the run-time form (0).
+int form_of(int which, int n, int v, int p, int steps, int bits,
+            int problem) {
   p = p < n ? p : n;
-  return steps == kPaperSteps && !rows_in_global(which, n, v, p, bits)
+  return steps == kPaperSteps &&
+                 !rows_in_global(which, n, v, p, bits,
+                                 data_words(problem, v))
              ? kPaperSteps
              : 0;
 }
 
-// Kernel `which` in build `form` at layout `bits`, and its slot in
-// allow_smem's table (K2's 16-bit builds after the six 32-bit ones).
-const void* kernel_of(int which, int form, int bits) {
-  return form == kPaperSteps ? kernel_built<kPaperSteps>(which, bits)
-                             : kernel_built<0>(which, bits);
+// Kernel `which` in build `form` at layout `bits` for `problem`, and its
+// slot in allow_smem's table (K2's 16-bit builds after the six 32-bit
+// ones; rastrigin_sr's eight builds after the other eight).
+const void* kernel_of(int which, int form, int bits, int problem) {
+  if (has_data(problem))
+    return form == kPaperSteps ? kernel_built<kPaperSteps, true>(which, bits)
+                               : kernel_built<0, true>(which, bits);
+  return form == kPaperSteps ? kernel_built<kPaperSteps, false>(which, bits)
+                             : kernel_built<0, false>(which, bits);
 }
 
-int slot_of(int which, int form, int bits) {
-  return 2 * (bits == 16 ? 3 : which) + (form == kPaperSteps);
+int slot_of(int which, int form, int bits, int problem) {
+  return 8 * has_data(problem) + 2 * (bits == 16 ? 3 : which) +
+         (form == kPaperSteps);
 }
 
-// Bytes a block of kernel `which` takes at layout `bits`: the mutation rows
-// below P included unless they stay in global memory.
-size_t smem_of(int which, int n, int v, int p, int bits) {
+// Bytes a block of kernel `which` takes at layout `bits` for `problem`: its
+// data, and the mutation rows below P unless they stay in global memory.
+size_t smem_of(int which, int n, int v, int p, int bits, int problem) {
   p = p < n ? p : n;        // rows past N are none
-  return 4 * (base_words(which, n, v, bits) +
-              (rows_in_global(which, n, v, p, bits) ? 0 : (size_t)v * p));
+  const int dw = data_words(problem, v);
+  return 4 * (base_words(which, n, v, bits, dw) +
+              (rows_in_global(which, n, v, p, bits, dw) ? 0
+                                                        : (size_t)v * p));
 }
 
 // The kernel's Shape; p is taken as min(P, N).
@@ -1765,18 +1913,21 @@ Shape shape_of(int which, int n, int v, int c, int idx_bits, int cut_bits,
                int p, int steps, int minimize, int problem, int bits) {
   p = p < n ? p : n;
   return Shape{n, v, c, idx_bits, cut_bits, p, steps, minimize, problem,
-               (int)rows_in_global(which, n, v, p, bits)};
+               (int)rows_in_global(which, n, v, p, bits,
+                                   data_words(problem, v))};
 }
 
 Stack make_stack(const void* x_in, const void* sel_in, const void* cross_in,
                  const void* mut_in, void* x_out, void* sel_out,
                  void* cross_out, void* mut_out, void* y_out, void* best_y,
-                 void* best_x, const void* lo, const void* span) {
+                 void* best_x, const void* lo, const void* span,
+                 const void* data) {
   return Stack{(const uint32_t*)x_in, (const uint32_t*)sel_in,
                (const uint32_t*)cross_in, (const uint32_t*)mut_in,
                (uint32_t*)x_out, (uint32_t*)sel_out, (uint32_t*)cross_out,
                (uint32_t*)mut_out, (float*)y_out, (float*)best_y,
-               (uint32_t*)best_x, (const float*)lo, (const float*)span};
+               (uint32_t*)best_x, (const float*)lo, (const float*)span,
+               (const float*)data};
 }
 
 // A launch configuration of `blocks` blocks for population size n, with a
@@ -1813,13 +1964,20 @@ struct Launch {
 extern "C" {
 
 size_t ga_step_smem_bytes(int n, int v, int p) {
-  return smem_of(0, n, v, p, 32);
+  return smem_of(0, n, v, p, 32, kF1);
 }
 
 // A K2 block at population layout `bits` (16 or 32); a K3 block is K2's at
 // 32 bits.
 size_t ga_epoch_smem_bytes(int n, int v, int p, int bits) {
-  return smem_of(1, n, v, p, bits);
+  return smem_of(1, n, v, p, bits, kF1);
+}
+
+// A block of kernel `which` (0: K1, 1: K2, 2: K3) at layout `bits` for
+// built-in problem `problem`, its data included.
+size_t ga_block_smem_bytes(int which, int n, int v, int p, int bits,
+                           int problem) {
+  return smem_of(which, n, v, p, bits, problem);
 }
 
 int ga_step_smem_limit() { return kSmemLimit; }
@@ -1834,27 +1992,30 @@ const char* ga_step_error_string(int err) {
 
 // K1: launch `replicas` blocks on `stream`; returns the cudaError_t of the
 // launch (0 = queued).  Pointers are device pointers of contiguous buffers.
+// `data`: the problem's data (rastrigin_sr: o [V] then M [V, V], float32),
+// else null.
 int ga_step_launch(const void* x_in, const void* sel_in, const void* cross_in,
                    const void* mut_in, void* x_out, void* sel_out,
                    void* cross_out, void* mut_out, void* y_out, void* best_y,
                    void* best_x, const void* lo, const void* span,
-                   int replicas, int n, int v, int c, int idx_bits,
-                   int cut_bits, int p, int steps, int minimize, int problem,
-                   int gens, int track_best, void* stream) {
-  const size_t smem = smem_of(0, n, v, p, 32);
-  if (bad_shape(smem, n, v, c, p, steps) || replicas < 1 || gens < 1)
+                   const void* data, int replicas, int n, int v, int c,
+                   int idx_bits, int cut_bits, int p, int steps, int minimize,
+                   int problem, int gens, int track_best, void* stream) {
+  const size_t smem = smem_of(0, n, v, p, 32, problem);
+  if (bad_shape(smem, n, v, c, p, steps) || bad_data(problem, v, data) ||
+      replicas < 1 || gens < 1)
     return (int)cudaErrorInvalidValue;
-  const int form = form_of(0, n, v, p, steps, 32);
-  cudaError_t e = allow_smem(kernel_of(0, form, 32), slot_of(0, form, 32));
+  const int form = form_of(0, n, v, p, steps, 32, problem);
+  const void* kernel = kernel_of(0, form, 32, problem);
+  cudaError_t e = allow_smem(kernel, slot_of(0, form, 32, problem));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
-                             span);
+                             span, data);
   const Shape S = shape_of(0, n, v, c, idx_bits, cut_bits, p, steps,
                            minimize, problem, 32);
-  auto* kernel = form == kPaperSteps ? ga_generation<kPaperSteps>
-                                     : ga_generation<0>;
-  kernel<<<replicas, threads_for(n), smem, (cudaStream_t)stream>>>(
+  auto* step = (void (*)(const Stack, const Shape, int, int))kernel;
+  step<<<replicas, threads_for(n), smem, (cudaStream_t)stream>>>(
       g, S, gens, track_best);
   return (int)cudaGetLastError();
 }
@@ -1867,65 +2028,64 @@ int ga_epoch_launch(const void* x_in, const void* sel_in,
                     void* sel_out, void* cross_out, void* mut_out,
                     void* y_out, void* best_y, void* best_x,
                     void* send_elite, void* worst0, const void* lo,
-                    const void* span, int groups, int islands, int n, int v,
-                    int c, int idx_bits, int cut_bits, int p, int steps,
-                    int minimize, int problem, int migrate_every,
-                    int intervals, int migrate, int boundary, int bits,
-                    void* stream) {
-  const size_t smem = smem_of(1, n, v, p, bits);
+                    const void* span, const void* data, int groups,
+                    int islands, int n, int v, int c, int idx_bits,
+                    int cut_bits, int p, int steps, int minimize, int problem,
+                    int migrate_every, int intervals, int migrate,
+                    int boundary, int bits, void* stream) {
+  const size_t smem = smem_of(1, n, v, p, bits, problem);
   if (bad_shape(smem, n, v, c, p, steps) || bad_layout(1, bits) ||
-      (bits == 16 && c > 16) || groups < 1 || islands < 1 ||
-      (migrate && islands > kMaxCluster) || migrate_every < 1 ||
-      intervals < 1 || (boundary && (!migrate || intervals != 1)))
+      bad_data(problem, v, data) || (bits == 16 && c > 16) || groups < 1 ||
+      islands < 1 || (migrate && islands > kMaxCluster) ||
+      migrate_every < 1 || intervals < 1 ||
+      (boundary && (!migrate || intervals != 1)))
     return (int)cudaErrorInvalidValue;
-  const int form = form_of(1, n, v, p, steps, bits);
-  cudaError_t e =
-      allow_smem(kernel_of(1, form, bits), slot_of(1, form, bits));
+  const int form = form_of(1, n, v, p, steps, bits, problem);
+  const void* kernel = kernel_of(1, form, bits, problem);
+  cudaError_t e = allow_smem(kernel, slot_of(1, form, bits, problem));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
-                             span);
+                             span, data);
   const Shape S = shape_of(1, n, v, c, idx_bits, cut_bits, p, steps,
                            minimize, problem, bits);
   const Epoch E{islands, migrate_every, intervals, migrate, boundary,
                 (uint32_t*)send_elite, (int*)worst0};
   Launch L(groups * islands, n, smem, stream, migrate ? islands : 0);
-  const EpochKernel kernel = form == kPaperSteps
-                                 ? epoch_built<kPaperSteps>(bits)
-                                 : epoch_built<0>(bits);
-  e = cudaLaunchKernelEx(&L.cfg, kernel, g, S, E);
+  e = cudaLaunchKernelEx(&L.cfg, (EpochKernel)kernel, g, S, E);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// How many clusters of `islands` K2 blocks at (n, v, p, steps) and
-// population layout `bits` the card holds at once
+// How many clusters of `islands` K2 blocks at (n, v, p, steps), population
+// layout `bits` and `problem`'s build the card holds at once
 // (cudaOccupancyMaxActiveClusters), into *out; returns the cudaError_t.
 int ga_epoch_max_active_clusters(int n, int v, int p, int steps, int islands,
-                                 int bits, int* out) {
+                                 int bits, int problem, int* out) {
   if (bad_layout(1, bits)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_of(1, n, v, p, bits);
-  const int form = form_of(1, n, v, p, steps, bits);
-  cudaError_t e =
-      allow_smem(kernel_of(1, form, bits), slot_of(1, form, bits));
+  const size_t smem = smem_of(1, n, v, p, bits, problem);
+  const int form = form_of(1, n, v, p, steps, bits, problem);
+  const void* kernel = kernel_of(1, form, bits, problem);
+  cudaError_t e = allow_smem(kernel, slot_of(1, form, bits, problem));
   if (e != cudaSuccess) return (int)e;
   Launch L(islands, n, smem, nullptr, islands);
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel_of(1, form, bits),
-                                             &L.cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &L.cfg);
 }
 
 // Kernel `which` (0: K1, 1: K2, 2: K3) as compiled for `steps` clocks a
-// draw at population layout `bits` (16: K2 alone): registers a thread,
-// local (spill and stack) bytes a thread, and the blocks an SM holds at
-// (n, v, p) (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// draw at population layout `bits` (16: K2 alone) for `problem` (its data
+// build for rastrigin_sr): registers a thread, local (spill and stack)
+// bytes a thread, and the blocks an SM holds at (n, v, p)
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int bits,
-                         int* regs, int* local_bytes, int* blocks_per_sm) {
+                         int problem, int* regs, int* local_bytes,
+                         int* blocks_per_sm) {
   if (bad_layout(which, bits)) return (int)cudaErrorInvalidValue;
-  const int form = form_of(which, n, v, p, steps, bits);
-  const void* kernel = kernel_of(which, form, bits);
+  const int form = form_of(which, n, v, p, steps, bits, problem);
+  const void* kernel = kernel_of(which, form, bits, problem);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_of(which, n, v, p, bits);
-  cudaError_t e = allow_smem(kernel, slot_of(which, form, bits));
+  const size_t smem = smem_of(which, n, v, p, bits, problem);
+  cudaError_t e = allow_smem(kernel, slot_of(which, form, bits, problem));
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kernel);
@@ -1948,28 +2108,30 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
                        void* sel_out, void* cross_out, void* mut_out,
                        void* y_out, void* best_y, void* best_x, void* elite,
                        void* worst, void* arrived, const void* lo,
-                       const void* span, int groups, int islands, int tile,
-                       int n, int v, int c, int idx_bits, int cut_bits, int p,
-                       int steps, int minimize, int problem,
-                       int migrate_every, int intervals, int migrate,
-                       int splice, int wave_groups, void* stream) {
-  const size_t smem = smem_of(2, n, v, p, 32);
-  if (bad_shape(smem, n, v, c, p, steps) || groups < 1 || islands < 1 ||
-      tile < 1 || islands % tile || migrate_every < 1 || intervals < 1 ||
-      (!splice && intervals != 1) || wave_groups < 1)
+                       const void* span, const void* data, int groups,
+                       int islands, int tile, int n, int v, int c,
+                       int idx_bits, int cut_bits, int p, int steps,
+                       int minimize, int problem, int migrate_every,
+                       int intervals, int migrate, int splice,
+                       int wave_groups, void* stream) {
+  const size_t smem = smem_of(2, n, v, p, 32, problem);
+  if (bad_shape(smem, n, v, c, p, steps) || bad_data(problem, v, data) ||
+      groups < 1 || islands < 1 || tile < 1 || islands % tile ||
+      migrate_every < 1 || intervals < 1 || (!splice && intervals != 1) ||
+      wave_groups < 1)
     return (int)cudaErrorInvalidValue;
-  const int form = form_of(2, n, v, p, steps, 32);
-  cudaError_t e = allow_smem(kernel_of(2, form, 32), slot_of(2, form, 32));
+  const int form = form_of(2, n, v, p, steps, 32, problem);
+  const void* built = kernel_of(2, form, 32, problem);
+  cudaError_t e = allow_smem(built, slot_of(2, form, 32, problem));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
-                             span);
+                             span, data);
   const Shape S = shape_of(2, n, v, c, idx_bits, cut_bits, p, steps,
                            minimize, problem, 32);
   const bool ring = migrate && splice;
   const int wave = ring ? wave_groups : groups;
-  auto* kernel = form == kPaperSteps ? ga_streamed_epoch<kPaperSteps>
-                                     : ga_streamed_epoch<0>;
+  auto* kernel = (void (*)(const Stack, const Shape, const Streamed))built;
   for (int g0 = 0; g0 < groups; g0 += wave) {
     const int count = groups - g0 < wave ? groups - g0 : wave;
     const Streamed T{groups, islands, tile, migrate_every, intervals,
@@ -1982,17 +2144,20 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
   return (int)cudaGetLastError();
 }
 
-// How many K3 blocks at (n, v, p, steps) the card holds at once: the
-// blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times
-// the SMs, into *out; returns the cudaError_t.
-int ga_streamed_capacity(int n, int v, int p, int steps, int* out) {
-  const size_t smem = smem_of(2, n, v, p, 32);
-  const int form = form_of(2, n, v, p, steps, 32);
-  cudaError_t e = allow_smem(kernel_of(2, form, 32), slot_of(2, form, 32));
+// How many K3 blocks at (n, v, p, steps) in `problem`'s build the card
+// holds at once: the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs, into
+// *out; returns the cudaError_t.
+int ga_streamed_capacity(int n, int v, int p, int steps, int problem,
+                         int* out) {
+  const size_t smem = smem_of(2, n, v, p, 32, problem);
+  const int form = form_of(2, n, v, p, steps, 32, problem);
+  const void* kernel = kernel_of(2, form, 32, problem);
+  cudaError_t e = allow_smem(kernel, slot_of(2, form, 32, problem));
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_of(2, form, 32), threads_for(n), smem);
+      &per_sm, kernel, threads_for(n), smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -2055,6 +2220,23 @@ int ga_ffm_launch(const void* x, void* y, const void* lo, const void* span,
   return (int)e;
 }
 
+// ga_ffm for rastrigin_sr: its rows form at one row a thread (tiles of
+// kGlobalThreads rows, chunk = v), the problem's `data` (o [V] then M [V,
+// V], float32) first in the block; V at most kSRMaxVars.
+int ga_ffm_data_launch(const void* x, void* y, const void* lo,
+                       const void* span, const void* data, int replicas,
+                       int n, int v, int c, int problem, void* stream) {
+  const size_t smem = ffm_tile_bytes(kGlobalThreads, v, false) +
+                      4 * (size_t)data_words(problem, v);
+  if (bad_global(replicas, n, v, c) || problem != kRastriginSR ||
+      bad_data(problem, v, data) || smem > (size_t)kFfmSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  return (int)ffm_run<1, kRastriginSR>(
+      (const uint32_t*)x, (float*)y, (const float*)lo, (const float*)span,
+      (size_t)replicas * n, v, c, problem, kGlobalThreads, v, smem,
+      (cudaStream_t)stream, (const float*)data);
+}
+
 // ga_operators: the offspring and the clocked banks of one generation, a
 // block a tile of `tile` pairs (a power of two dividing N/2) and `chunk`
 // variables (see the note above).  The banks are read and written as
@@ -2111,7 +2293,8 @@ int ga_best_launch(const void* x, const void* y, const void* best_y_in,
 // Registers and local (spill and stack) bytes a thread of the global
 // form's kernel `which`: 0 ga_ffm's spread form for rastrigin, 1
 // ga_operators, 2 ga_best, 3, 4, 5 ga_ffm's rows form at K = 1, 2, 4, 6,
-// 7, 8 its spread form for sphere, rosenbrock, ackley.
+// 7, 8 its spread form for sphere, rosenbrock, ackley, 9 its rows form for
+// rastrigin_sr.
 int ga_global_kernel_attrs(int which, int* regs, int* local_bytes) {
   const void* kernel = which == 0   ? (const void*)ga_ffm<0, kRastrigin>
                        : which == 1 ? (const void*)ga_operators
@@ -2122,6 +2305,7 @@ int ga_global_kernel_attrs(int which, int* regs, int* local_bytes) {
                        : which == 6 ? (const void*)ga_ffm<0, kSphere>
                        : which == 7 ? (const void*)ga_ffm<0, kRosenbrock>
                        : which == 8 ? (const void*)ga_ffm<0, kAckley>
+                       : which == 9 ? (const void*)ga_ffm<1, kRastriginSR>
                                     : nullptr;
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;

@@ -65,6 +65,13 @@ evaluates it), so K1 runs every spec the JAX package's fused kernel runs.
 why the one-block form cannot take it, and the epoch planner
 (`epoch_mode_candidates`) which launch shapes an island-ring spec can take
 on this card.
+
+A problem with data (rastrigin_sr: a shift and a rotation) runs in builds
+of its own, each kernel's data pointer from `FitnessProgram.device_data`,
+the data in the block's shared memory (`data_words`, counted by every
+block-size function given the program), ga_ffm in its rows form; a V
+past what those builds hold in registers (`SR_MAX_VARS`) is refused by
+`data_reason`, so K1 runs its global form with the PyTorch stage.
 """
 
 from __future__ import annotations
@@ -104,7 +111,10 @@ MAX_CLUSTER = 8                # portable thread-block cluster size (K2 ring)
 
 # the built-in problems the kernel's FFM stage implements, by kernel id
 PROBLEM_IDS = {"F1": 0, "F2": 1, "F3": 2, "sphere": 3, "rastrigin": 4,
-               "rosenbrock": 5, "ackley": 6}
+               "rosenbrock": 5, "ackley": 6, "rastrigin_sr": 7}
+# rastrigin_sr's builds hold an individual's V shifted values in registers:
+# at most this many variables (kSRMaxVars)
+SR_MAX_VARS = 32
 
 
 def reset_launches() -> None:
@@ -113,34 +123,49 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _block_bytes(n: int, v: int, p: int, extra: int, bits: int = 32) -> int:
-    """Bytes of a block with `extra` words beyond K1's layout and population
-    words of `bits` bits; the mutation rows below P count only where they
-    fit (else they stay in global memory)."""
+def _block_bytes(n: int, v: int, p: int, extra: int, bits: int = 32,
+                 data: int = 0) -> int:
+    """Bytes of a block with `extra` words beyond K1's layout, population
+    words of `bits` bits and `data` words of problem data; the mutation
+    rows below P count only where they fit (else they stay in global
+    memory)."""
     base = (n * v * bits // 4
-            + 4 * (4 * n + v * (n // 2) + 3 * v + 2 + 2 * 64 + extra))
+            + 4 * (4 * n + v * (n // 2) + 3 * v + 2 + 2 * 64 + extra + data))
     rows = base + 4 * v * min(p, n)
     return rows if rows <= _LAYOUT_LIMIT else base
 
 
-def smem_bytes(n: int, v: int, p: int) -> int:
+def data_words(program: Optional[F.FitnessProgram]) -> int:
+    """Words of the program's data a kernel block holds in shared memory
+    (`data_words` in the CUDA source): rastrigin_sr's M rows at a stride of
+    V rounded up to 4, then o, the pad words zero; 0 for a problem without
+    data (or no program)."""
+    if program is None or program.data is None:
+        return 0
+    v = program.n_vars
+    return ((v + 3) & ~3) * (v + 1)
+
+
+def smem_bytes(n: int, v: int, p: int, data: int = 0) -> int:
     """Shared memory one block takes for a replica of shape (N, V) that
     mutates its first P rows: the population and the fitness vector, each
     double buffered, the selection and crossover banks, the mutation bank's
     rows below P where they fit beside the rest (the rows at and past P are
     never drawn and stay in global memory, as do the rows below P that do
-    not fit), the decode constants, the best individual and the reduction
-    scratch (the layout in ``csrc/ga_step.cu``)."""
-    return _block_bytes(n, v, p, 0)
+    not fit), the decode constants, the best individual, the reduction
+    scratch and `data` words of problem data (`data_words`; the layout in
+    ``csrc/ga_step.cu``)."""
+    return _block_bytes(n, v, p, 0, data=data)
 
 
-def epoch_smem_bytes(n: int, v: int, p: int, bits: int = 32) -> int:
+def epoch_smem_bytes(n: int, v: int, p: int, bits: int = 32,
+                     data: int = 0) -> int:
     """Shared memory one K2 or K3 block takes for an island of shape (N, V)
     with P mutated rows: K1's layout plus the elite row a ring neighbour
     reads and one slot, with population words of `bits` bits (K3 and K1
     hold 32; K2 holds `population_bits(c)`, so its block is
-    `resident_block_bytes`)."""
-    return _block_bytes(n, v, p, v + 1, bits)
+    `resident_block_bytes`) and `data` words of problem data."""
+    return _block_bytes(n, v, p, v + 1, bits, data)
 
 
 def population_bits(c: int) -> int:
@@ -153,10 +178,12 @@ def population_bits(c: int) -> int:
     return 16 if c <= 16 else 32
 
 
-def resident_block_bytes(cfg: GAConfig) -> int:
+def resident_block_bytes(cfg: GAConfig,
+                         program: Optional[F.FitnessProgram] = None) -> int:
     """Shared memory one K2 block takes at `cfg`'s shape and layout
-    (`population_bits(cfg.c)`)."""
-    return epoch_smem_bytes(cfg.n, cfg.v, cfg.p, population_bits(cfg.c))
+    (`population_bits(cfg.c)`), with `program`'s data."""
+    return epoch_smem_bytes(cfg.n, cfg.v, cfg.p, population_bits(cfg.c),
+                            data_words(program))
 
 
 # why a LUT config cannot take the kernels: their FFM stage is arith only
@@ -173,6 +200,25 @@ def problem_id(program: F.FitnessProgram) -> Optional[int]:
     if pid is None or builtin is None or program.fn is not builtin.fn:
         return None
     return pid
+
+
+def data_reason(program: F.FitnessProgram) -> Optional[str]:
+    """None when the kernels' FFM stage can hold the program's data, else
+    why: rastrigin_sr's builds keep an individual's V shifted values in
+    registers, at most `SR_MAX_VARS` (K1's global form then runs the
+    program's PyTorch stage)."""
+    if program.data is not None and program.n_vars > SR_MAX_VARS:
+        return (f"{program.name}:{program.n_vars}: the kernels' FFM stage "
+                "holds an individual's shifted values in registers, at most "
+                f"{SR_MAX_VARS} variables; K1's global form runs its "
+                "PyTorch stage")
+    return None
+
+
+def _data_ptr(program: F.FitnessProgram, device):
+    """The device pointer of the program's data on `device`, or None."""
+    data = program.device_data(device)
+    return None if data is None else data.data_ptr()
 
 
 def _tensor_bytes(value) -> int:
@@ -196,11 +242,12 @@ def ffm_const_bytes(program: F.FitnessProgram) -> int:
     and span (4 bytes a variable each) and the tensors and arrays the
     fitness function closes over (`inspect.getclosurevars`: its nonlocals
     and the globals it names, one level into tuples, lists and dicts).
-    Counted once a program."""
+    The problem's data (`FitnessProgram.data`) counts too.  Counted once a
+    program."""
     cached = program.__dict__.get("_const_bytes")
     if cached is None:
         fn = getattr(program.fn, "__func__", program.fn)
-        cached = 8 * program.n_vars
+        cached = 8 * program.n_vars + program.data_bytes
         if inspect.isfunction(fn):
             seen = inspect.getclosurevars(fn)
             cached += sum(_tensor_bytes(v) for v in
@@ -247,15 +294,19 @@ def hopper_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
 def block_reason(cfg: GAConfig, program: F.FitnessProgram) -> Optional[str]:
     """None if the one-block form of K1 (and, for the FFM stage, K2 and K3)
     takes this (config, program), else why: the fitness needs an FFM stage
-    in CUDA (a built-in problem), and the replica's state must fit a
-    block's shared memory (the mutation rows below P only where they fit).
-    K1's global form takes what this refuses; K2 and K3 do not."""
+    in CUDA (a built-in problem) that holds its data (`data_reason`), and
+    the replica's state and the problem's data must fit a block's shared
+    memory (the mutation rows below P only where they fit).  K1's global
+    form takes what this refuses; K2 and K3 do not."""
     if problem_id(program) is None:
         return (f"no Hopper FFM stage for this fitness ({program.name!r}): "
                 "the one-block kernels implement the built-in problems "
                 f"{sorted(PROBLEM_IDS)}; K1's global form runs a blackbox "
                 "or user-registered fitness through its PyTorch stage")
-    need = smem_bytes(cfg.n, cfg.v, cfg.p)
+    reason = data_reason(program)
+    if reason is not None:
+        return reason
+    need = smem_bytes(cfg.n, cfg.v, cfg.p, data_words(program))
     if need > SMEM_LIMIT:
         return (f"N={cfg.n}, V={cfg.v}, P={cfg.p} needs {need} bytes of "
                 f"shared memory per replica, past the {SMEM_LIMIT}-byte "
@@ -337,23 +388,25 @@ def kernel_library():
 def _declare(lib) -> None:
     import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ga_step_launch.argtypes = [p] * 13 + [i] * 12 + [p]
+    lib.ga_step_launch.argtypes = [p] * 14 + [i] * 12 + [p]
     lib.ga_step_launch.restype = i
-    lib.ga_epoch_launch.argtypes = [p] * 15 + [i] * 16 + [p]
+    lib.ga_epoch_launch.argtypes = [p] * 16 + [i] * 16 + [p]
     lib.ga_epoch_launch.restype = i
-    lib.ga_streamed_launch.argtypes = [p] * 16 + [i] * 17 + [p]
+    lib.ga_streamed_launch.argtypes = [p] * 17 + [i] * 17 + [p]
     lib.ga_streamed_launch.restype = i
-    lib.ga_streamed_capacity.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.ga_streamed_capacity.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.ga_streamed_capacity.restype = i
-    lib.ga_epoch_max_active_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.ga_epoch_max_active_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.ga_epoch_max_active_clusters.restype = i
-    lib.ga_step_kernel_attrs.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+    lib.ga_step_kernel_attrs.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
     lib.ga_step_kernel_attrs.restype = i
     lib.ga_step_threads.argtypes = [i]
     lib.ga_step_threads.restype = i
     lib.ga_step_smem_bytes.argtypes = [i, i, i]
     lib.ga_epoch_smem_bytes.argtypes = [i, i, i, i]
-    for fn in (lib.ga_step_smem_bytes, lib.ga_epoch_smem_bytes):
+    lib.ga_block_smem_bytes.argtypes = [i] * 6
+    for fn in (lib.ga_step_smem_bytes, lib.ga_epoch_smem_bytes,
+               lib.ga_block_smem_bytes):
         fn.restype = ctypes.c_size_t
     for fn in (lib.ga_step_smem_limit, lib.ga_step_max_cluster):
         fn.argtypes = []
@@ -362,6 +415,8 @@ def _declare(lib) -> None:
     lib.ga_step_error_string.restype = ctypes.c_char_p
     lib.ga_ffm_launch.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.ga_ffm_launch.restype = i
+    lib.ga_ffm_data_launch.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.ga_ffm_data_launch.restype = i
     lib.ga_operators_launch.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.ga_operators_launch.restype = i
     lib.ga_best_launch.argtypes = [p] * 6 + [i] * 6 + [p]
@@ -407,6 +462,7 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             x.data_ptr(), sel.data_ptr(), cross.data_ptr(), mut.data_ptr(),
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
             bx.data_ptr(), lo.data_ptr(), span.data_ptr(),
+            _data_ptr(program, dev),
             r, n, v, cfg.c, cfg.idx_bits, cfg.cut_bits, min(cfg.p, n),
             cfg.steps_per_draw, int(cfg.minimize), problem_id(program), gens,
             int(track_best), stream)
@@ -417,10 +473,10 @@ def ga_generation_kernel(x, sel, cross, mut, *, cfg: GAConfig,
 
 def _global_generations(x, sel, cross, mut, cfg, program, gens, track_best):
     """K1's global form on card tensors: a generation is the FFM stage
-    (`ga_ffm_kernel` for a built-in problem, else the program's PyTorch
-    stage, which the reference executor calls), the best fold and the
-    operators, each a launch.  Returns K1's contract."""
-    builtin = problem_id(program) is not None
+    (`ga_ffm_kernel` for a built-in problem whose data it holds, else the
+    program's PyTorch stage, which the reference executor calls), the best
+    fold and the operators, each a launch.  Returns K1's contract."""
+    builtin = problem_id(program) is not None and data_reason(program) is None
     r = x.shape[0]
     by = torch.full((r,), math.inf if cfg.minimize else -math.inf,
                     dtype=torch.float32, device=x.device)
@@ -473,6 +529,9 @@ def ga_ffm_kernel(x, *, cfg: GAConfig, program: F.FitnessProgram
         raise ValueError(f"no Hopper FFM stage for this fitness "
                          f"({program.name!r}): ga_ffm implements the "
                          f"built-in problems {sorted(PROBLEM_IDS)}")
+    reason = data_reason(program)
+    if reason is not None:
+        raise ValueError(reason)
     _check_tensor("x", x, x.shape[:1] + (cfg.n, cfg.v), torch.int32,
                   x.device)
     if x.device.type == "cpu":
@@ -481,15 +540,23 @@ def ga_ffm_kernel(x, *, cfg: GAConfig, program: F.FitnessProgram
     r, n, v = x.shape
     lo, span = program.device_consts(x.device)
     y = torch.empty((r, n), dtype=torch.float32, device=x.device)
-    spread = ffm_spreads(n, v, r)
-    tile, chunk = ffm_tiling(n, v, r, spread)
+    spread = ffm_spreads(n, v, r, data_words(program))
     lib = kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ga_ffm_launch(x.data_ptr(), y.data_ptr(), lo.data_ptr(),
-                                span.data_ptr(), r, n, v, cfg.c,
-                                problem_id(program), tile, chunk,
-                                int(spread), stream)
+        if program.data is not None:
+            # the rows form's build for the problem: a row a thread in
+            # tiles of FFM_THREADS rows, the data first in the block
+            err = lib.ga_ffm_data_launch(
+                x.data_ptr(), y.data_ptr(), lo.data_ptr(), span.data_ptr(),
+                _data_ptr(program, x.device), r, n, v, cfg.c,
+                problem_id(program), stream)
+        else:
+            tile, chunk = ffm_tiling(n, v, r, spread)
+            err = lib.ga_ffm_launch(x.data_ptr(), y.data_ptr(),
+                                    lo.data_ptr(), span.data_ptr(), r, n, v,
+                                    cfg.c, problem_id(program), tile, chunk,
+                                    int(spread), stream)
     _check_launch(err, "ga_ffm")
     LAUNCHES["ga_ffm"] += 1
     return y
@@ -513,15 +580,17 @@ OPS_GRID = 512                 # blocks a launch should have to fill the card
 BEST_SLICE = 4096              # values a ga_best block folds before B grows
 
 
-def ffm_spreads(n: int, v: int, replicas: int) -> bool:
+def ffm_spreads(n: int, v: int, replicas: int, data: int = 0) -> bool:
     """Whether ga_ffm takes its spread form over R * N rows of V variables
     (a thread a term, then a thread a row folding them) rather than its
     rows form (a thread whole rows): never below `FFM_SPREAD_V` (F1-F3, V
-    = 2, have no per-variable sum), and from there unless the rows form's
+    = 2, have no per-variable sum), never for a problem with `data` words
+    (rastrigin_sr: each of its V terms needs every variable, so its terms
+    are no per-variable sum either), and from there unless the rows form's
     256-row tiles alone fill `OPS_GRID` blocks and fit the budget.  Where
     they do, the rows form was the faster on the card, and where R * N is
     small the spread form keeps the card busy (`PERF.md` §5)."""
-    if v < FFM_SPREAD_V:
+    if v < FFM_SPREAD_V or data:
         return False
     return not (replicas * n >= FFM_THREADS * OPS_GRID
                 and ffm_tile_bytes(FFM_THREADS, v, False) <= FFM_SMEM_LIMIT)
@@ -693,11 +762,12 @@ def ga_operators_kernel(x, y, sel, cross, mut, *, cfg: GAConfig
 
 
 # ga_ffm: its spread form's rastrigin build; ga_ffm:rows<K>: the rows form,
-# K rows a thread; ga_ffm:<problem>: the spread form's other builds
+# K rows a thread; ga_ffm:<problem>: the spread form's other builds, and
+# rastrigin_sr's rows-form build
 GLOBAL_KERNEL_IDS = {"ga_ffm": 0, "ga_operators": 1, "ga_best": 2,
                      "ga_ffm:rows1": 3, "ga_ffm:rows2": 4, "ga_ffm:rows4": 5,
                      "ga_ffm:sphere": 6, "ga_ffm:rosenbrock": 7,
-                     "ga_ffm:ackley": 8}
+                     "ga_ffm:ackley": 8, "ga_ffm:rastrigin_sr": 9}
 
 
 def global_kernel_attrs(name: str) -> Dict[str, int]:
@@ -717,10 +787,13 @@ def global_kernel_attrs(name: str) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def epoch_smem_reason(cfg: GAConfig, bits: int = 32) -> Optional[str]:
+def epoch_smem_reason(cfg: GAConfig, bits: int = 32,
+                      program: Optional[F.FitnessProgram] = None
+                      ) -> Optional[str]:
     """None when one island fits a K2/K3 block's shared memory at
-    population layout `bits` (K2's: `population_bits(cfg.c)`), else why."""
-    need = epoch_smem_bytes(cfg.n, cfg.v, cfg.p, bits)
+    population layout `bits` (K2's: `population_bits(cfg.c)`) with
+    `program`'s data, else why."""
+    need = epoch_smem_bytes(cfg.n, cfg.v, cfg.p, bits, data_words(program))
     if need > SMEM_LIMIT:
         return (f"N={cfg.n}, V={cfg.v}, P={cfg.p} needs {need} bytes of "
                 "shared memory per island block of the epoch kernels, past "
@@ -728,15 +801,18 @@ def epoch_smem_reason(cfg: GAConfig, bits: int = 32) -> Optional[str]:
     return None
 
 
-def resident_smem_bytes(cfg: GAConfig, i_local: int) -> int:
+def resident_smem_bytes(cfg: GAConfig, i_local: int,
+                        program: Optional[F.FitnessProgram] = None) -> int:
     """Shared memory of one replica's resident epoch: `i_local` K2 blocks
     of `resident_block_bytes`, one cluster (the quantity a planning budget
     weighs, as the JAX package weighs `resident_vmem_bytes`)."""
-    return i_local * resident_block_bytes(cfg)
+    return i_local * resident_block_bytes(cfg, program)
 
 
 def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True,
-                        budget: Optional[int] = None) -> Optional[str]:
+                        budget: Optional[int] = None,
+                        program: Optional[F.FitnessProgram] = None
+                        ) -> Optional[str]:
     """None when a resident epoch of `i_local` islands runs on Hopper, else
     the limit that refuses it.  One K2 block holds one island, so the block
     must fit a block's shared memory; the ring makes a group's islands one
@@ -748,9 +824,9 @@ def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True,
         return (f"resident epoch makes the {i_local} islands of a replica "
                 "one thread-block cluster for its ring, past the portable "
                 f"cluster size of {MAX_CLUSTER} on Hopper")
-    reason = epoch_smem_reason(cfg, population_bits(cfg.c))
+    reason = epoch_smem_reason(cfg, population_bits(cfg.c), program)
     if reason is None and budget is not None:
-        need = resident_smem_bytes(cfg, i_local)
+        need = resident_smem_bytes(cfg, i_local, program)
         if need > budget:
             reason = (f"resident epoch needs {need} B of shared memory for "
                       f"{i_local} island(s) at N={cfg.n} (> smem_budget "
@@ -758,26 +834,38 @@ def resident_fit_reason(cfg: GAConfig, i_local: int, *, ring: bool = True,
     return reason
 
 
+def _build_id(program: Optional[F.FitnessProgram]) -> int:
+    """The problem id that picks a kernel's build: rastrigin_sr's for a
+    program with data, else a runtime-problem build's (every other
+    built-in problem shares those)."""
+    if program is not None and program.data is not None:
+        return PROBLEM_IDS[program.name]
+    return PROBLEM_IDS["F1"]
+
+
 @functools.lru_cache(maxsize=None)
-def _capacity(n: int, v: int, p: int, steps: int, device_index: int) -> int:
+def _capacity(n: int, v: int, p: int, steps: int, device_index: int,
+              problem: int) -> int:
     import ctypes
     lib = kernel_library()
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check_launch(lib.ga_streamed_capacity(n, v, p, steps,
+        _check_launch(lib.ga_streamed_capacity(n, v, p, steps, problem,
                                                ctypes.byref(out)),
                       "ga_streamed_epoch occupancy")
     return out.value
 
 
-def streamed_capacity(cfg: GAConfig, device) -> int:
-    """How many K3 blocks at (N, V, P) the card `device` holds at once
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs): the
-    most a cooperative K3 launch may have; needs a card."""
+def streamed_capacity(cfg: GAConfig, device,
+                      program: Optional[F.FitnessProgram] = None) -> int:
+    """How many K3 blocks at (N, V, P) in `program`'s build the card
+    `device` holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    times the SMs): the most a cooperative K3 launch may have; needs a
+    card."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return _capacity(cfg.n, cfg.v, min(cfg.p, cfg.n), cfg.steps_per_draw,
-                     index)
+                     index, _build_id(program))
 
 
 def streamed_waves(groups: int, islands: int, tile: int,
@@ -800,7 +888,8 @@ def tile_for_capacity(groups: int, islands: int, capacity: int) -> int:
 
 
 def streamed_tile_islands(cfg: GAConfig, groups: int = 1, islands: int = 1,
-                          device=None, budget: Optional[int] = None
+                          device=None, budget: Optional[int] = None,
+                          program: Optional[F.FitnessProgram] = None
                           ) -> Optional[int]:
     """The streamed lane's island tile for `groups` replica groups of
     `islands` islands: None when one island does not fit a K3 block (or
@@ -808,20 +897,24 @@ def streamed_tile_islands(cfg: GAConfig, groups: int = 1, islands: int = 1,
     CPU) 1, since the plain version ignores the tile; on a card
     `tile_for_capacity` at its `streamed_capacity`.  A K3 block walks its
     tile's islands in turn, so unlike the JAX package's double-buffered
-    tile the budget does not bound T."""
-    if epoch_smem_reason(cfg) is not None:
+    tile the budget does not bound T.  `program`'s data counts in the
+    block."""
+    if epoch_smem_reason(cfg, 32, program) is not None:
         return None
     if (budget is not None
-            and epoch_smem_bytes(cfg.n, cfg.v, cfg.p) > budget):
+            and epoch_smem_bytes(cfg.n, cfg.v, cfg.p, 32,
+                                 data_words(program)) > budget):
         return None
     if device is None or torch.device(device).type != "cuda":
         return 1
     return tile_for_capacity(groups, islands,
-                             streamed_capacity(cfg, device))
+                             streamed_capacity(cfg, device, program))
 
 
 def streamed_tile_reason(cfg: GAConfig, groups: int, islands: int,
-                         tile: int, device=None) -> Optional[str]:
+                         tile: int, device=None,
+                         program: Optional[F.FitnessProgram] = None
+                         ) -> Optional[str]:
     """None when a pinned streamed tile runs, else why not: it must divide
     the island count, and on a card its blocks must co-reside in no more
     waves than the planner's tile needs."""
@@ -830,7 +923,7 @@ def streamed_tile_reason(cfg: GAConfig, groups: int, islands: int,
                 f"must divide the island count {islands}")
     if device is None or torch.device(device).type != "cuda":
         return None
-    cap = streamed_capacity(cfg, device)
+    cap = streamed_capacity(cfg, device, program)
     best = tile_for_capacity(groups, islands, cap)
     waves = streamed_waves(groups, islands, tile, cap)
     if waves == 0 or waves > streamed_waves(groups, islands, best, cap):
@@ -880,10 +973,11 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
         return [dict(gridded, fallback=reason)]
     k = max(1, gens_per_epoch // migrate_every)
     if migration == "ring" and gens_per_epoch >= migrate_every:
-        reason = resident_fit_reason(cfg, i_local, budget=budget)
+        reason = resident_fit_reason(cfg, i_local, budget=budget,
+                                     program=program)
         if reason is not None:
             tile = streamed_tile_islands(cfg, groups, i_local, device,
-                                         budget)
+                                         budget, program)
             if tile is None:
                 return [dict(gridded, fallback=reason)]
             return [{"mode": "streamed", "lane": cfg.sel_lane,
@@ -903,10 +997,10 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
         # no ring: gridded stays the heuristic; resident-free (or, past the
         # block, a streamed tile) is offered for plan_override to pick
         reason = resident_fit_reason(cfg, i_local, ring=False,
-                                     budget=budget)
+                                     budget=budget, program=program)
         if reason is not None:
             tile = streamed_tile_islands(cfg, groups, i_local, device,
-                                         budget)
+                                         budget, program)
             out = [dict(gridded, fallback=reason)]
             if tile is not None:
                 out.append({"mode": "streamed", "lane": cfg.sel_lane,
@@ -920,39 +1014,47 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
     return [gridded]
 
 
-def max_active_clusters(cfg: GAConfig, i_local: int) -> int:
-    """How many K2 clusters of `i_local` islands at (N, V) and K2's layout
-    (`population_bits(cfg.c)`) the card holds at once
-    (cudaOccupancyMaxActiveClusters); needs a card."""
+def max_active_clusters(cfg: GAConfig, i_local: int,
+                        program: Optional[F.FitnessProgram] = None) -> int:
+    """How many K2 clusters of `i_local` islands at (N, V), K2's layout
+    (`population_bits(cfg.c)`) and `program`'s build (its data in the
+    block) the card holds at once (cudaOccupancyMaxActiveClusters); needs
+    a card."""
     import ctypes
     lib = kernel_library()
     out = ctypes.c_int(0)
     _check_launch(lib.ga_epoch_max_active_clusters(
         cfg.n, cfg.v, min(cfg.p, cfg.n), cfg.steps_per_draw, i_local,
-        population_bits(cfg.c), ctypes.byref(out)),
+        population_bits(cfg.c), _build_id(program), ctypes.byref(out)),
         "ga_epoch occupancy")
     return out.value
 
 
-def clusters_at_once(cfg: GAConfig, i_local: int, device) -> Optional[int]:
+def clusters_at_once(cfg: GAConfig, i_local: int, device,
+                     program: Optional[F.FitnessProgram] = None
+                     ) -> Optional[int]:
     """`max_active_clusters` on a card `device`; None elsewhere (the plain
     version has no clusters)."""
     if device is None or torch.device(device).type != "cuda":
         return None
     with torch.cuda.device(torch.device(device)):
-        return max_active_clusters(cfg, i_local)
+        return max_active_clusters(cfg, i_local, program)
 
 
 KERNEL_IDS = {"ga_generation": 0, "ga_epoch": 1, "ga_streamed_epoch": 2}
 
 
-def kernel_attrs(name: str, cfg: GAConfig) -> Dict[str, int]:
+def kernel_attrs(name: str, cfg: GAConfig,
+                 program: Optional[F.FitnessProgram] = None
+                 ) -> Dict[str, int]:
     """Kernel `name` as built for `cfg`'s clocks a draw (3 has its own
-    build) and its population layout (K2: `population_bits(cfg.c)`; K1, K3:
-    32), at `cfg`'s block shape: registers and local (spill and stack)
-    bytes a thread (cudaFuncGetAttributes), the blocks an SM holds
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the threads a block,
-    the layout's bits and the bytes a block; needs a card."""
+    build), its population layout (K2: `population_bits(cfg.c)`; K1, K3:
+    32) and `program`'s problem (rastrigin_sr's builds hold its data; every
+    other problem shares one build), at `cfg`'s block shape: registers and
+    local (spill and stack) bytes a thread (cudaFuncGetAttributes), the
+    blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the
+    threads a block, the layout's bits and the bytes a block; needs a
+    card."""
     import ctypes
     lib = kernel_library()
     bits = population_bits(cfg.c) if name == "ga_epoch" else 32
@@ -960,10 +1062,12 @@ def kernel_attrs(name: str, cfg: GAConfig) -> Dict[str, int]:
     regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     _check_launch(lib.ga_step_kernel_attrs(
         KERNEL_IDS[name], cfg.n, cfg.v, p, cfg.steps_per_draw, bits,
-        ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks)),
+        _build_id(program), ctypes.byref(regs), ctypes.byref(local),
+        ctypes.byref(blocks)),
         f"{name} attributes")
-    smem = (smem_bytes(cfg.n, cfg.v, p) if name == "ga_generation"
-            else epoch_smem_bytes(cfg.n, cfg.v, p, bits))
+    data = data_words(program)
+    smem = (smem_bytes(cfg.n, cfg.v, p, data) if name == "ga_generation"
+            else epoch_smem_bytes(cfg.n, cfg.v, p, bits, data))
     return {"registers": regs.value, "local_bytes": local.value,
             "blocks_per_sm": blocks.value,
             "threads": lib.ga_step_threads(cfg.n),
@@ -1026,7 +1130,7 @@ def _check_epoch(name, x, sel, cross, mut, cfg, program, migrate_every,
     if migrate_every < 1 or intervals < 1:
         raise ValueError(f"migrate_every and intervals must be >= 1, got "
                          f"{migrate_every} and {intervals}")
-    reason = epoch_smem_reason(cfg, bits)
+    reason = epoch_smem_reason(cfg, bits, program)
     if reason is not None:
         raise ValueError(reason)
 
@@ -1078,7 +1182,8 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             x.data_ptr(), sel.data_ptr(), cross.data_ptr(), mut.data_ptr(),
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
             bx.data_ptr(), send.data_ptr(), w0.data_ptr(), lo.data_ptr(),
-            span.data_ptr(), g_grid, i_islands, n, v, cfg.c, cfg.idx_bits,
+            span.data_ptr(), _data_ptr(program, dev), g_grid, i_islands, n,
+            v, cfg.c, cfg.idx_bits,
             cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
             int(cfg.minimize),
             problem_id(program), migrate_every, intervals, int(migrate),
@@ -1169,7 +1274,7 @@ def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
     ring = migrate and splice
     waves = 1
     if ring:
-        cap = streamed_capacity(cfg, x.device)
+        cap = streamed_capacity(cfg, x.device, program)
         waves = streamed_waves(g_grid, i_islands, tile_islands, cap)
         if waves == 0:
             raise ValueError(
@@ -1199,7 +1304,8 @@ def ga_streamed_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             *(t.data_ptr() for t in outs), y.data_ptr(), by.data_ptr(),
             bx.data_ptr(), ex.data_ptr(), wi.data_ptr(),
             arrived.data_ptr() if ring else None,
-            lo.data_ptr(), span.data_ptr(), g_grid, i_islands, tile_islands,
+            lo.data_ptr(), span.data_ptr(), _data_ptr(program, dev), g_grid,
+            i_islands, tile_islands,
             n, v, cfg.c, cfg.idx_bits, cfg.cut_bits, min(cfg.p, n),
             cfg.steps_per_draw, int(cfg.minimize), problem_id(program),
             migrate_every, intervals, int(migrate), int(splice),

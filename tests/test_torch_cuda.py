@@ -532,6 +532,150 @@ def test_island_cell_clusters_run_in_one_wave(cuda_device):
     assert K.max_active_clusters(wide, 8) < 51
 
 
+def _sr_case(v, n, c, minimize=True):
+    prog = TF.compile_program(problem=f"rastrigin_sr:{v}", bits_per_var=c)
+    cfg = TG.GAConfig(n=n, c=c, v=v, mutation_rate=0.02, seed=5,
+                      minimize=minimize, mode="arith", sel_lane="gather")
+    return prog, cfg
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        assert torch.equal(a, b), f"output {i}"
+
+
+# rastrigin_sr: from the least V to the most its builds hold in registers
+SR_SHAPES = [(2, 64), (5, 64), (30, 256), (32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minimize", [True, False])
+@pytest.mark.parametrize("v,n", SR_SHAPES)
+def test_rastrigin_sr_one_block_and_ga_ffm_match_plain(cuda_device, v, n,
+                                                       minimize):
+    """K1's one-block form in rastrigin_sr's build, and ga_ffm's rows form
+    for it, against their plain versions bit for bit."""
+    prog, cfg = _sr_case(v, n, 16, minimize)
+    assert K.block_reason(cfg, prog) is None
+    st = _stack(cfg, 5, cuda_device)
+    args = (st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)
+    before = K.LAUNCHES["ga_generation"]
+    got = K.ga_generation_kernel(*args, cfg=cfg, program=prog, gens=16,
+                                 track_best=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_generation"] == before + 1
+    _assert_same(got, K.ga_generation_plain(*args, cfg=cfg, program=prog,
+                                            gens=16, track_best=True))
+    x = torch.randint(0, 1 << 16, (3, n, v), dtype=torch.int32,
+                      device=cuda_device)
+    assert torch.equal(K.ga_ffm_kernel(x, cfg=cfg, program=prog),
+                       prog.stage(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,intervals", [("ring", 2), ("free", 2),
+                                            ("boundary", 1)])
+@pytest.mark.parametrize("c", [16, 17])
+@pytest.mark.parametrize("v,n", SR_SHAPES)
+def test_rastrigin_sr_epoch_matches_plain(cuda_device, v, n, c, mode,
+                                          intervals):
+    """K2's rastrigin_sr build at 16-bit (c = 16) and 32-bit (c = 17)
+    words against its plain version, every output bit for bit."""
+    prog, cfg = _sr_case(v, n, c)
+    assert K.kernel_attrs("ga_epoch", cfg, prog)["population_bits"] == (
+        16 if c == 16 else 32)
+    args = _island_groups(cfg, 3, 4, cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=3, intervals=intervals,
+              boundary=mode == "boundary", migrate=mode != "free")
+    _assert_same(K.ga_epoch_kernel(*args, **kw),
+                 K.ga_epoch_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,splice", [(1, False), (1, True), (2, True)])
+@pytest.mark.parametrize("v,n", [(5, 64), (30, 256)])
+def test_rastrigin_sr_streamed_matches_plain(cuda_device, v, n, tile,
+                                             splice):
+    """K3's rastrigin_sr build, one interval and the ring inside at tiles
+    1 and 2, against its plain version bit for bit."""
+    prog, cfg = _sr_case(v, n, 16)
+    args = _island_groups(cfg, 2, 4, cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=3, tile_islands=tile,
+              migrate=True, intervals=2 if splice else 1, splice=splice)
+    _assert_same(K.ga_streamed_epoch_kernel(*args, **kw),
+                 K.ga_streamed_epoch_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_rastrigin_sr_epoch_at_the_rotated_cell(cuda_device):
+    """K2's rastrigin_sr build at the rotated cell (51 groups of 8 islands,
+    N=256, V=30, 16 bits, two intervals of 16 generations) bit for bit; its
+    block of 55,868 B still lets four share an SM and the card hold the
+    51 clusters at once, and the island cell's build reads as it did."""
+    prog, cfg = _sr_case(30, 256, 16)
+    args = _island_groups(cfg, 51, 8, cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=16, intervals=2)
+    _assert_same(K.ga_epoch_kernel(*args, **kw),
+                 K.ga_epoch_plain(*args, **kw))
+    attrs = K.kernel_attrs("ga_epoch", cfg, prog)
+    assert attrs["smem_bytes"] == 55868 and attrs["blocks_per_sm"] >= 4
+    assert attrs["registers"] <= 128
+    assert K.max_active_clusters(cfg, 8, prog) >= 51
+    plain = K.kernel_attrs("ga_epoch", cfg)
+    assert plain["smem_bytes"] == 51900 and plain["registers"] == 64
+    assert K.max_active_clusters(cfg, 8) >= 51
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,n", SR_SHAPES + [(30, 1024)])
+def test_rastrigin_sr_block_bytes_match_the_kernels(cuda_device, v, n):
+    """The Python block sizes with rastrigin_sr's data (`data_words`) are
+    the CUDA launchers' own, for K1, K2 at both layouts and K3."""
+    prog, cfg = _sr_case(v, n, 16)
+    lib, pid, data = K.kernel_library(), K.PROBLEM_IDS["rastrigin_sr"], \
+        K.data_words(prog)
+    p = min(cfg.p, n)
+    assert lib.ga_block_smem_bytes(0, n, v, p, 32, pid) == \
+        K.smem_bytes(n, v, p, data)
+    for bits in (16, 32):
+        assert lib.ga_block_smem_bytes(1, n, v, p, bits, pid) == \
+            K.epoch_smem_bytes(n, v, p, bits, data)
+    assert lib.ga_block_smem_bytes(2, n, v, p, 32, pid) == \
+        K.epoch_smem_bytes(n, v, p, 32, data)
+    assert lib.ga_block_smem_bytes(1, n, v, p, 16, K.PROBLEM_IDS[
+        "rastrigin"]) == K.epoch_smem_bytes(n, v, p, 16)
+
+
+@pytest.mark.cuda
+def test_rastrigin_sr_past_the_registers_runs_the_pytorch_stage(
+        cuda_device):
+    """V = 33: K1 takes its global form with the program's PyTorch stage
+    (no ga_ffm launch), equal to the plain version; the island ring plans
+    gridded with the reason."""
+    prog, cfg = _sr_case(33, 64, 16)
+    assert K.block_reason(cfg, prog) is not None
+    st = _stack(cfg, 3, cuda_device)
+    args = (st.x, st.sel_lfsr, st.cross_lfsr, st.mut_lfsr)
+    before = dict(K.LAUNCHES)
+    got = K.ga_generation_kernel(*args, cfg=cfg, program=prog, gens=4,
+                                 track_best=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_ffm"] == before["ga_ffm"]
+    assert K.LAUNCHES["ga_best"] == before["ga_best"] + 4
+    _assert_same(got, K.ga_generation_plain(*args, cfg=cfg, program=prog,
+                                            gens=4, track_best=True))
+    spec = ga.GASpec(problem="rastrigin_sr:33", n=64, bits_per_var=16,
+                     mode="arith", generations=8, n_repeats=2, n_islands=4,
+                     migrate_every=2, gens_per_epoch=4, seed=3)
+    opts = ga.EngineOptions(device="cuda", cost_table=False, faults=False)
+    res = ga.solve(spec, "fused-islands", options=opts)
+    assert res.telemetry.plan.mode == "gridded"
+    ref = ga.solve(spec, "islands", options=opts)
+    _assert_same(res.state, ref.state)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("minimize", [True, False])
 @pytest.mark.parametrize("case", CASES)

@@ -92,7 +92,11 @@ def test_lut_stage_bit_exact(name, v):
 
 
 def test_registry_and_validation_match():
-    assert sorted(TF.PROBLEMS) == sorted(JF.PROBLEMS)
+    """The port's registry is the JAX package's plus the problems named in
+    `PORT_ONLY` (rastrigin_sr), each JAX problem field for field."""
+    assert TF.PORT_ONLY == {"rastrigin_sr"}
+    assert not TF.PORT_ONLY & set(JF.PROBLEMS)
+    assert sorted(set(TF.PROBLEMS) - TF.PORT_ONLY) == sorted(JF.PROBLEMS)
     for name, jdef in JF.PROBLEMS.items():
         tdef = TF.PROBLEMS[name]
         assert (tdef.domain, tdef.fixed_vars, tdef.default_vars,
@@ -106,6 +110,11 @@ def test_registry_and_validation_match():
             TF.compile_program(problem=bad, bits_per_var=8)
     with pytest.raises(ValueError, match="separable"):
         TF.compile_program(problem="ackley", bits_per_var=8, mode="lut")
+    with pytest.raises(ValueError, match="at least 2"):
+        TF.compile_program(problem="rastrigin_sr:1", bits_per_var=8)
+    with pytest.raises(ValueError, match="separable"):
+        TF.compile_program(problem="rastrigin_sr:4", bits_per_var=8,
+                           mode="lut")
 
 
 def test_blackbox_program():

@@ -475,7 +475,7 @@ def test_streamed_waves_refuse_a_group_that_does_not_fit():
 
 def _on_card(monkeypatch, cap=264):
     """The planner as on a card that holds `cap` K3 blocks at once."""
-    monkeypatch.setattr(K, "streamed_capacity", lambda cfg, device: cap)
+    monkeypatch.setattr(K, "streamed_capacity", lambda cfg, device, *a: cap)
     return torch.device("cuda")
 
 

@@ -305,7 +305,7 @@ def test_sharded_candidates_follow_jax(monkeypatch):
                 jcfg, i_local, migration=migration, sharded=True, **args)
             assert [{k: c[k] for k in keys} for c in got] == \
                 [{k: c[k] for k in keys} for c in want]
-    monkeypatch.setattr(K, "streamed_capacity", lambda cfg, device: 8)
+    monkeypatch.setattr(K, "streamed_capacity", lambda cfg, device, *a: 8)
     got = K.epoch_mode_candidates(cfg, 16, migration="ring", sharded=True,
                                   groups=2, device=torch.device("cuda"),
                                   **args)

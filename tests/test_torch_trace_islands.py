@@ -147,7 +147,7 @@ def test_segment_reports_the_layout_and_cluster_waves(monkeypatch, bits,
     counter is absent)."""
     spec = dataclasses.replace(SPEC, bits_per_var=bits)
     monkeypatch.setattr(K, "clusters_at_once",
-                        lambda cfg, i_local, device: at_once)
+                        lambda cfg, i_local, device, *a: at_once)
     TR.enable()
     res = ga.solve(spec, "fused-islands", options=CPU)
     (seg,) = _by_name(TR.records())["topology.segment"]
@@ -158,7 +158,7 @@ def test_segment_reports_the_layout_and_cluster_waves(monkeypatch, bits,
     assert topo.launches == 4
     assert seg["attrs"]["cluster_waves"] == topo.launches * waves
     monkeypatch.setattr(K, "clusters_at_once",
-                        lambda cfg, i_local, device: None)
+                        lambda cfg, i_local, device, *a: None)
     TR.clear()
     ga.solve(spec, "fused-islands", options=CPU)
     (seg,) = _by_name(TR.records())["topology.segment"]
