@@ -664,19 +664,22 @@ class IslandRingTopology(Topology):
                 plan["tile_islands"] = t
             plan["smem_estimate_bytes"] = K.epoch_smem_bytes(n, v, p, 32,
                                                              data)
-            plan["population_bits"] = 32
+            plan["population_bits"], plan["pair_threads"] = 32, 1
         elif plan["mode"].startswith("resident"):
             plan["smem_estimate_bytes"] = K.resident_block_bytes(self.cfg,
                                                                  prog)
             plan["population_bits"] = K.population_bits(self.cfg.c)
+            plan["pair_threads"] = K.pair_threads(self.cfg, self.i_local,
+                                                  self.device, prog)
             if plan["mode"] != "resident-free":
                 plan["clusters_at_once"] = K.clusters_at_once(
-                    self.cfg, self.i_local, self.device, prog)
+                    self.cfg, self.i_local, self.device, prog,
+                    plan["pair_threads"])
         elif (self.executor.name == "fused"
               and K.block_reason(self.cfg, prog) is None):
             # (K1's global form keeps no replica in shared memory)
             plan["smem_estimate_bytes"] = K.smem_bytes(n, v, p, data)
-            plan["population_bits"] = 32
+            plan["population_bits"], plan["pair_threads"] = 32, 1
         return plan
 
     @staticmethod
@@ -747,6 +750,7 @@ class IslandRingTopology(Topology):
         else:
             e, intervals = k, 1
         prog, sq = self.executor.program, self._ungrouped
+        lanes = self.plan["pair_threads"]
 
         def launch(shards):
             (states,) = shards
@@ -754,7 +758,7 @@ class IslandRingTopology(Topology):
             x, sel, cross, mut, y, by, bx = K.ga_epoch_kernel(
                 g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
                 program=prog, migrate_every=e, intervals=intervals,
-                migrate=migrate)
+                migrate=migrate, lanes=lanes)
             state = G.GAState(sq(x), sq(sel), sq(cross), sq(mut),
                               states.k + e * intervals)
             return ([state], [sq(by, 1)], [sq(bx, 1)],
@@ -836,6 +840,7 @@ class IslandRingTopology(Topology):
         island 0 at the worst slot the kernel found there."""
         e, prog, sq = (self.icfg.migrate_every, self.executor.program,
                        self._ungrouped)
+        lanes = self.plan["pair_threads"]
 
         def launch(shards):
             outs = []
@@ -844,7 +849,7 @@ class IslandRingTopology(Topology):
                 outs.append(K.ga_epoch_kernel(
                     g.x, g.sel_lfsr, g.cross_lfsr, g.mut_lfsr, cfg=self.cfg,
                     program=prog, migrate_every=e, intervals=1,
-                    boundary=True))
+                    boundary=True, lanes=lanes))
             recv = ISL.ring_shift_sharded([o[7] for o in outs], self.mesh,
                                           self._mesh_axes)
             new, bys, bxs, tms = [], [], [], []
@@ -954,10 +959,10 @@ class IslandRingTopology(Topology):
         the segment's wait; the host reads its packed result back once.
 
         Traced, the segment is a `topology.segment` span (attribute `plan`,
-        and `population_bits` where the plan's kernel holds its population
-        in shared memory; counters `intervals` and `migrations`, and on a
-        card for a K2 ring `cluster_waves`, its launches times the waves of
-        clusters each takes; `ffm_data_bytes` for a problem with data; off
+        and `population_bits` and `pair_threads` where the plan's kernel
+        holds its population in shared memory; counters `intervals` and
+        `migrations`, and on a card for a K2 ring `cluster_waves`, its
+        launches times the waves of clusters each takes; `ffm_data_bytes` for a problem with data; off
         a mesh on a card also `SegmentClock`'s timing events and launch
         counts), a
         `topology.launch` span a runner call, a `segment.fold` span around
@@ -971,8 +976,9 @@ class IslandRingTopology(Topology):
         bys, bxs, tms = [], [], []
         a = self._island_dim()
         attrs = {"plan": self.plan["mode"]}
-        if "population_bits" in self.plan:
-            attrs["population_bits"] = self.plan["population_bits"]
+        for key in ("population_bits", "pair_threads"):
+            if key in self.plan:
+                attrs[key] = self.plan[key]
         with TR.span("topology.segment", **attrs) as sp:
             sp.count("intervals", epochs)
             sp.count("migrations", migrations)

@@ -14,7 +14,8 @@
 The fields are the JAX package's that the port's topologies fill, under
 the same names, so a consumer reads both packages the same way; the one
 byte field is `smem_estimate_bytes` where the JAX package has its VMEM
-estimate; `population_bits` and `clusters_at_once` are the port's own.
+estimate; `population_bits`, `pair_threads` and `clusters_at_once` are
+the port's own.
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ class PlanInfo:
     tile; lane the selection lane the kernels ran; smem_estimate_bytes the
     dynamic shared memory one thread block of the plan's kernel takes, and
     population_bits the width of a population word there (16 in K2's
-    layout at c <= 16, else 32); clusters_at_once the K2 clusters the card
-    holds at once (a ring plan on a card); gens_per_s the measured rate
+    layout at c <= 16, else 32) and pair_threads its threads a pair (2 in
+    K2's two-lane form, `kernels.ga_step.pair_threads`, else 1);
+    clusters_at_once the K2 clusters the card holds at once (a ring plan
+    on a card); gens_per_s the measured rate
     that justified a "measured" choice."""
 
     mode: str = "-"
@@ -53,6 +56,7 @@ class PlanInfo:
     gens_per_s: Optional[float] = None
     population_bits: Optional[int] = None
     clusters_at_once: Optional[int] = None
+    pair_threads: Optional[int] = None
 
     @classmethod
     def from_plan(cls, plan: Dict[str, Any]) -> "PlanInfo":
@@ -67,7 +71,8 @@ class PlanInfo:
                    smem_estimate_bytes=plan.get("smem_estimate_bytes"),
                    gens_per_s=plan.get("plan_gens_per_s"),
                    population_bits=plan.get("population_bits"),
-                   clusters_at_once=plan.get("clusters_at_once"))
+                   clusters_at_once=plan.get("clusters_at_once"),
+                   pair_threads=plan.get("pair_threads"))
 
 
 @dataclasses.dataclass

@@ -52,8 +52,9 @@
 // bound is the
 // issue rate of one island's warps: a generation has one barrier, and the
 // block's time is that of its slowest warp.  A small island (N=256: 4 warps
-// a block) leaves an SM latency-bound, so there the blocks an SM holds set
-// the pace, and K2's 16-bit layout (below) doubles them.
+// a block of pairs) leaves an SM latency-bound, so there the warps an SM
+// holds set the pace: K2's 16-bit layout (below) doubles its blocks, and
+// its two-lane form (below) the warps of each.
 //
 // What the design does about it.
 //   * An island's state lives in dynamic shared memory for all of a
@@ -71,6 +72,26 @@
 //     the other of two population buffers and evaluates their fitness into
 //     the other of two fitness buffers.  Nothing it writes is read by
 //     another thread before the one block barrier of a generation.
+//   * K2's two-lane form (kLanes = 2): one thread an individual, a pair's
+//     two individuals two adjacent lanes of a warp, so an island of N <=
+//     512 is a block of N threads.  Each lane clocks its own two selection
+//     words and runs its own tournament; the lanes swap winners with one
+//     shuffle and each reads both parents' words and forms its own child.
+//     The pair's V cut words are split between the lanes (lane h clocks
+//     and writes back the variables j = h mod 2) and swapped with one
+//     shuffle a variable pair; only the warps that hold rows below P take
+//     the loop with the mutation.  Each lane mutates, stores (one 2-byte
+//     store) and evaluates (`ffm<1>`, rastrigin's loop unrolled by two
+//     variables) its own child.  Every word is
+//     clocked as often and every float operation sees the same operands
+//     in the same order as in the pair form, so the state is that form's
+//     bit for bit.  The wrapper takes it where the block it makes pays:
+//     the 16-bit build without problem data, 32 <= N <= 512, and the card
+//     holds as many of its clusters at once as of the pair block's (at
+//     the island cell, N=256: 8 warps a block, 32 an SM, not 16; on an
+//     H100 a launch of 2 x 16 generations of 51 clusters takes 0.47-0.48
+//     ms against the pair form's 0.53).  Every other build keeps one lane
+//     a pair.
 //   * The word-parallel LFSR advance (`lfsr_advance`): up to 22 clocks in
 //     one branch-free pass of 13-17 instructions (shifts and three-input
 //     logic), instead of 9 operations a clock.  It was the largest cost of a generation, so the
@@ -108,9 +129,10 @@
 //     its two population buffers as uint16_t [V][N] (the Python wrapper
 //     picks the layout from c alone; HBM keeps int32 words, narrowed at the
 //     load and widened at the store; a pair's children are one 4-byte
-//     store), 4NV bytes less a block: 51,900 B against 82,620 at the island
-//     cell (N=256, V=30, P=6), so an SM holds four of its blocks, not two,
-//     and its 51 clusters of 8 run in one wave, where the 32-bit layout held
+//     store, a lane's child in the two-lane form one 2-byte store), 4NV
+//     bytes less a block: 51,900 B against 82,620 at the island cell
+//     (N=256, V=30, P=6), so an SM holds four of its blocks, not two, and
+//     its 51 clusters of 8 run in one wave, where the 32-bit layout held
 //     30 at once and ran a second wave of 21.  Every operation sees the
 //     same values in the same order, so the state is the 32-bit layout's bit
 //     for bit.  K1 and K3 keep 32-bit words.
@@ -192,7 +214,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 512;     // one thread a pair of individuals
+constexpr int kMaxThreads = 512;     // a block's threads: a pair (or, in
+                                     // K2's two-lane form, an individual)
+                                     // a thread
 constexpr int kMinBlocks = 2;        // island blocks an SM can hold at once
 constexpr int kSmemLimit = 232448;   // 227 KB of dynamic shared memory a block
 constexpr int kMaxCluster = 8;       // portable thread-block cluster size
@@ -302,7 +326,12 @@ __host__ inline bool rows_in_global(int which, int n, int v, int p,
          (size_t)kSmemLimit;
 }
 
-__host__ inline int threads_for(int n) {
+// Threads of a block at population size n with `lanes` threads a pair: a
+// thread a pair (at least a warp, at most kMaxThreads), or in K2's two-lane
+// form a thread an individual (the launcher takes it only at 32 <= n <=
+// kMaxThreads, n a multiple of 32, so every lane has one).
+__host__ inline int threads_for(int n, int lanes) {
+  if (lanes == 2) return n;
   const int pairs = n / 2;
   return pairs < 32 ? 32 : (pairs > kMaxThreads ? kMaxThreads : pairs);
 }
@@ -505,8 +534,12 @@ __device__ __forceinline__ void load_sr_data(float* dst, const float* src,
 // reads variable j of individual i: `Decoder` in the one-block kernels'
 // shared memory, `TileDecoder` in the rows form of `ga_ffm`.  kData:
 // rastrigin_sr's builds, whose problem is that one, with its data in
-// shared memory; the other builds take the problem at run time.
-template <int K, bool kData = false, class D>
+// shared memory; the other builds take the problem at run time.  kUnroll =
+// 2 (K2's two-lane form) unrolls rastrigin's loop by two variables: with
+// K = 1 a step holds one cosf chain, whose slow-path branch keeps the
+// compiler from overlapping the next (the other loops it unrolls itself);
+// the sum keeps its order.
+template <int K, bool kData = false, int kUnroll = 1, class D>
 __device__ __forceinline__ void ffm(int problem, const D& d,
                                     const int (&i)[K], int v, float (&y)[K],
                                     const float* data = nullptr) {
@@ -544,6 +577,16 @@ __device__ __forceinline__ void ffm(int problem, const D& d,
         for (int k = 0; k < K; ++k) y[k] = y[k] + sphere_term(d(i[k], j));
       return;
     case kRastrigin:
+      if constexpr (kUnroll == 2) {
+#pragma unroll 2
+        for (int j = 0; j < v; ++j)
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            float t = rastrigin_term(d(i[k], j));
+            y[k] = j ? y[k] + t : t;
+          }
+        return;
+      }
       for (int j = 0; j < v; ++j)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
@@ -845,16 +888,133 @@ __device__ __forceinline__ void store_pair(uint16_t* p, uint32_t a,
   *(ushort2*)p = make_ushort2((unsigned short)a, (unsigned short)b);
 }
 
+// The two-lane form's crossover and mutation for one lane, a call a
+// variable: the child of the parents' words *pm and *po at the cut in
+// `draw` into *pz, each pointer then a row (n words) down; with kMut, XOR
+// the lane's mutation word *mw in (mw is null past P; its rows are
+// `mstep` words apart).
+template <bool kMut, class W>
+struct LaneChild {
+  const W* pm;
+  const W* po;
+  W* pz;
+  uint32_t* mw;
+  int n, mstep, steps, cut_shift, mut_shift;
+  uint32_t c, mask;
+  __device__ __forceinline__ void operator()(uint32_t draw) {
+    uint32_t cut = draw >> cut_shift;
+    cut = cut < c ? cut : c;
+    const uint32_t sm = mask >> cut;
+    uint32_t z = (*pm & ~sm) | (*po & sm);
+    if constexpr (kMut) {
+      if (mw) {
+        z ^= clock_word(mw, steps) >> mut_shift;
+        mw += mstep;
+      }
+    }
+    *pz = (W)z;
+    pm += n;
+    po += n;
+    pz += n;
+  }
+};
+
+// Every variable's child of one lane: the pair's cut words two at a time,
+// lane h clocking variable j + h at *cw (a row pair down each step) and
+// the lanes swapping the draws; at V odd the last word is the even
+// lane's.
+template <bool kMut, class W>
+__device__ __forceinline__ void lane_crossover(LaneChild<kMut, W> child,
+                                               uint32_t* cw, int v, int h) {
+  const int n = child.n;
+  int j = 0;
+  for (; j + 1 < v; j += 2, cw += n) {
+    const uint32_t own = clock_word(cw, child.steps);
+    const uint32_t swapped = __shfl_xor_sync(0xffffffffu, own, 1);
+    child(h ? swapped : own);
+    child(h ? own : swapped);
+  }
+  if (j < v) {
+    const uint32_t own = h ? 0u : clock_word(cw, child.steps);
+    const uint32_t swapped = __shfl_xor_sync(0xffffffffu, own, 1);
+    child(h ? swapped : own);
+  }
+}
+
+// The two-lane form's body (see the header) for individual i = threadIdx.x
+// of a block of n threads: its tournament, its child of the pair's
+// crossover and mutation into X(cur ^ 1), and with `eval` its fitness into
+// Y(cur ^ 1), folded into (bv, bi).  Every lane of the block must call it.
+template <int kSteps, class W>
+__device__ __forceinline__
+void lane_child(const Island<W>& s, const Shape& S, bool eval, int cur,
+                float& bv, int& bi) {
+  const int n = S.n, v = S.v, half = n / 2, p = S.p;
+  const int steps = kSteps ? kSteps : S.steps;
+  const bool rows_global = kSteps == 0 && s.gmut != nullptr;
+  const bool minimize = S.minimize != 0;
+  const uint32_t mask = (1u << S.c) - 1u;
+  const int sel_shift = 32 - S.idx_bits;
+  const W* xc = s.X(cur);
+  const float* yc = s.Y(cur);
+  W* xn = s.X(cur ^ 1);
+  const int i = threadIdx.x, pr = i >> 1, h = i & 1;
+  // ---- SM: this lane's tournament, then the partner's winner ------------
+  const uint32_t d1 = clock_word(s.sel + i, steps),
+                 d2 = clock_word(s.sel + n + i, steps);
+  const int i1 = (int)(d1 >> sel_shift), i2 = (int)(d2 >> sel_shift);
+  const int mine = (minimize ? yc[i1] <= yc[i2] : yc[i1] >= yc[i2]) ? i1 : i2;
+  const int other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  // ---- CM + MM: the rows below P only in the warps that hold them --------
+  uint32_t* mw = i >= p ? nullptr : rows_global ? s.gmut + i : s.mut + i;
+  const int mstep = rows_global ? n : p;
+  uint32_t* cw = s.cross + (size_t)h * half + pr;
+  if ((i & ~31) < p)
+    lane_crossover(LaneChild<true, W>{xc + mine, xc + other, xn + i, mw, n,
+                                      mstep, steps, 32 - S.cut_bits,
+                                      32 - S.c, (uint32_t)S.c, mask},
+                   cw, v, h);
+  else
+    lane_crossover(LaneChild<false, W>{xc + mine, xc + other, xn + i, mw,
+                                       n, mstep, steps, 32 - S.cut_bits,
+                                       32 - S.c, (uint32_t)S.c, mask},
+                   cw, v, h);
+  // ---- FFM of this lane's child, two variables a step --------------------
+  if (eval) {
+    const int one[1] = {i};
+    float y[1];
+    ffm<1, false, 2>(S.problem, Decoder<W>{xn, n, mask, s.lo, s.span}, one,
+                     v, y);
+    s.Y(cur ^ 1)[i] = y[0];
+    if (takes(y[0], i, bv, bi, minimize)) {
+      bv = y[0];
+      bi = i;
+    }
+  }
+}
+
 // One generation of the island in shared memory, from buffer `cur` into
 // cur ^ 1, with kSteps LFSR clocks a draw (0: S.steps, read at run time);
-// kData: rastrigin_sr's build.  Every thread of the block must call it; it
+// kData: rastrigin_sr's build; kLanes: threads a pair (2: K2's two-lane
+// form, `lane_child`).  Every thread of the block must call it; it
 // ends on the block barrier after which X(cur ^ 1) holds the offspring
 // and, with `eval`, Y(cur ^ 1) their fitness (and, with track_best, its
 // warp partials).
-template <int kSteps, class W, bool kData>
+template <int kSteps, class W, bool kData, int kLanes = 1>
 __device__ __forceinline__
 void generation(const Island<W>& s, const Shape& S, bool track_best,
                 bool eval, int cur) {
+  if constexpr (kLanes == 2) {
+    static_assert(!kData, "the two-lane form has no build with data");
+    const bool minimize = S.minimize != 0;
+    if (track_best && fold_warp()) fold_best(s, S, cur);
+    float bv = worst_value(minimize);
+    int bi = 0x7fffffff;
+    lane_child<kSteps>(s, S, eval, cur, bv, bi);
+    if (eval && track_best) warp_partial(s, cur ^ 1, bv, bi, minimize);
+    __syncthreads();
+    return;
+  }
   const int n = S.n, v = S.v, half = n / 2, p = S.p;
   const int steps = kSteps ? kSteps : S.steps;
   // only the run-time form takes mutation rows in global memory: a branch
@@ -1000,7 +1160,9 @@ int ring_step(const Island<W>& s, const Shape& S, const Epoch& E, int cur) {
   return splice ? w : n;
 }
 
-template <int kSteps, class W, bool kData>
+// kLanes: threads a pair (2: the two-lane form, 16-bit builds without data
+// only; see the header).
+template <int kSteps, class W, bool kData, int kLanes>
 __global__ void __launch_bounds__(kMaxThreads, kData ? 1 : kMinBlocks)
 ga_epoch(const Stack g, const Shape S, const Epoch E) {
   extern __shared__ uint32_t smem[];
@@ -1010,7 +1172,7 @@ ga_epoch(const Stack g, const Shape S, const Epoch E) {
   int cur = 0;
   for (int it = 0; it < E.intervals; ++it) {
     for (int t = 0; t < E.migrate_every; ++t, cur ^= 1)
-      generation<kSteps, W, kData>(s, S, true, true, cur);
+      generation<kSteps, W, kData, kLanes>(s, S, true, true, cur);
     // the interval's best, then a fresh fold for the next interval
     if (fold_warp()) {
       const size_t o = (size_t)it * gridDim.x + blockIdx.x;
@@ -1824,7 +1986,7 @@ bool bad_layout(int which, int bits) {
 // blocks can share an SM.  Setting an attribute twice does no harm, so two
 // threads that race to the first launch need no lock.
 cudaError_t allow_smem(const void* kernel, int which) {
-  static std::atomic<bool> allowed[16][kMaxDevices];
+  static std::atomic<bool> allowed[18][kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1843,17 +2005,21 @@ cudaError_t allow_smem(const void* kernel, int which) {
 
 using EpochKernel = void (*)(const Stack, const Shape, const Epoch);
 
+// K2's builds: the two-lane form only at 16 bits without data (the
+// launchers refuse it elsewhere).
 template <int kSteps, bool kData>
-EpochKernel epoch_built(int bits) {
-  return bits == 16 ? ga_epoch<kSteps, uint16_t, kData>
-                    : ga_epoch<kSteps, uint32_t, kData>;
+EpochKernel epoch_built(int bits, int lanes) {
+  if constexpr (!kData)
+    if (lanes == 2) return ga_epoch<kSteps, uint16_t, false, 2>;
+  return bits == 16 ? ga_epoch<kSteps, uint16_t, kData, 1>
+                    : ga_epoch<kSteps, uint32_t, kData, 1>;
 }
 
 template <int kSteps, bool kData>
-const void* kernel_built(int which, int bits) {
+const void* kernel_built(int which, int bits, int lanes) {
   switch (which) {
     case 0: return (const void*)ga_generation<kSteps, kData>;
-    case 1: return (const void*)epoch_built<kSteps, kData>(bits);
+    case 1: return (const void*)epoch_built<kSteps, kData>(bits, lanes);
     case 2: return (const void*)ga_streamed_epoch<kSteps, kData>;
   }
   return nullptr;
@@ -1882,18 +2048,32 @@ int form_of(int which, int n, int v, int p, int steps, int bits,
              : 0;
 }
 
-// Kernel `which` in build `form` at layout `bits` for `problem`, and its
-// slot in allow_smem's table (K2's 16-bit builds after the six 32-bit
-// ones; rastrigin_sr's eight builds after the other eight).
-const void* kernel_of(int which, int form, int bits, int problem) {
-  if (has_data(problem))
-    return form == kPaperSteps ? kernel_built<kPaperSteps, true>(which, bits)
-                               : kernel_built<0, true>(which, bits);
-  return form == kPaperSteps ? kernel_built<kPaperSteps, false>(which, bits)
-                             : kernel_built<0, false>(which, bits);
+// Whether K2 cannot take `lanes` threads a pair: 1 everywhere, 2 only in
+// its 16-bit builds without data at 32 <= n <= kMaxThreads, n a multiple of
+// 32 (every lane of the block an individual).
+bool bad_lanes(int which, int n, int bits, int problem, int lanes) {
+  if (lanes == 1) return false;
+  return lanes != 2 || which != 1 || bits != 16 || has_data(problem) ||
+         n < 32 || n > kMaxThreads || n % 32;
 }
 
-int slot_of(int which, int form, int bits, int problem) {
+// Kernel `which` in build `form` at layout `bits` for `problem` with
+// `lanes` threads a pair, and its slot in allow_smem's table (K2's 16-bit
+// builds after the six 32-bit ones; rastrigin_sr's eight builds after the
+// other eight; K2's two-lane builds last).
+const void* kernel_of(int which, int form, int bits, int problem,
+                      int lanes) {
+  if (has_data(problem))
+    return form == kPaperSteps
+               ? kernel_built<kPaperSteps, true>(which, bits, lanes)
+               : kernel_built<0, true>(which, bits, lanes);
+  return form == kPaperSteps
+             ? kernel_built<kPaperSteps, false>(which, bits, lanes)
+             : kernel_built<0, false>(which, bits, lanes);
+}
+
+int slot_of(int which, int form, int bits, int problem, int lanes) {
+  if (lanes == 2) return 16 + (form == kPaperSteps);
   return 8 * has_data(problem) + 2 * (bits == 16 ? 3 : which) +
          (form == kPaperSteps);
 }
@@ -1930,17 +2110,17 @@ Stack make_stack(const void* x_in, const void* sel_in, const void* cross_in,
                (const float*)data};
 }
 
-// A launch configuration of `blocks` blocks for population size n, with a
+// A launch configuration of `blocks` blocks of `threads` threads, with a
 // cluster of `cluster` blocks when cluster > 0, and cooperative (every
 // block co-resident, or the launch is refused) with `cooperative`.
 struct Launch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  Launch(int blocks, int n, size_t smem, void* stream, int cluster,
+  Launch(int blocks, int threads, size_t smem, void* stream, int cluster,
          bool cooperative = false) {
     cfg = cudaLaunchConfig_t{};
     cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(threads_for(n));
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = (cudaStream_t)stream;
     if (cluster > 0) {
@@ -1984,7 +2164,8 @@ int ga_step_smem_limit() { return kSmemLimit; }
 
 int ga_step_max_cluster() { return kMaxCluster; }
 
-int ga_step_threads(int n) { return threads_for(n); }
+// Threads of a block at population size n with `lanes` threads a pair.
+int ga_step_threads(int n, int lanes) { return threads_for(n, lanes); }
 
 const char* ga_step_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -2006,8 +2187,8 @@ int ga_step_launch(const void* x_in, const void* sel_in, const void* cross_in,
       replicas < 1 || gens < 1)
     return (int)cudaErrorInvalidValue;
   const int form = form_of(0, n, v, p, steps, 32, problem);
-  const void* kernel = kernel_of(0, form, 32, problem);
-  cudaError_t e = allow_smem(kernel, slot_of(0, form, 32, problem));
+  const void* kernel = kernel_of(0, form, 32, problem, 1);
+  cudaError_t e = allow_smem(kernel, slot_of(0, form, 32, problem, 1));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
@@ -2015,13 +2196,14 @@ int ga_step_launch(const void* x_in, const void* sel_in, const void* cross_in,
   const Shape S = shape_of(0, n, v, c, idx_bits, cut_bits, p, steps,
                            minimize, problem, 32);
   auto* step = (void (*)(const Stack, const Shape, int, int))kernel;
-  step<<<replicas, threads_for(n), smem, (cudaStream_t)stream>>>(
+  step<<<replicas, threads_for(n, 1), smem, (cudaStream_t)stream>>>(
       g, S, gens, track_best);
   return (int)cudaGetLastError();
 }
 
 // K2: `groups` x `islands` blocks at population layout `bits` (16 needs
-// c <= 16 and words below 2^16); with `migrate`, each group's islands are
+// c <= 16 and words below 2^16) with `lanes` threads a pair (2: the
+// two-lane form, `bad_lanes`); with `migrate`, each group's islands are
 // one cluster.  `boundary` needs `migrate` and one interval.
 int ga_epoch_launch(const void* x_in, const void* sel_in,
                     const void* cross_in, const void* mut_in, void* x_out,
@@ -2032,17 +2214,18 @@ int ga_epoch_launch(const void* x_in, const void* sel_in,
                     int islands, int n, int v, int c, int idx_bits,
                     int cut_bits, int p, int steps, int minimize, int problem,
                     int migrate_every, int intervals, int migrate,
-                    int boundary, int bits, void* stream) {
+                    int boundary, int bits, int lanes, void* stream) {
   const size_t smem = smem_of(1, n, v, p, bits, problem);
   if (bad_shape(smem, n, v, c, p, steps) || bad_layout(1, bits) ||
-      bad_data(problem, v, data) || (bits == 16 && c > 16) || groups < 1 ||
+      bad_data(problem, v, data) || (bits == 16 && c > 16) ||
+      bad_lanes(1, n, bits, problem, lanes) || groups < 1 ||
       islands < 1 || (migrate && islands > kMaxCluster) ||
       migrate_every < 1 || intervals < 1 ||
       (boundary && (!migrate || intervals != 1)))
     return (int)cudaErrorInvalidValue;
   const int form = form_of(1, n, v, p, steps, bits, problem);
-  const void* kernel = kernel_of(1, form, bits, problem);
-  cudaError_t e = allow_smem(kernel, slot_of(1, form, bits, problem));
+  const void* kernel = kernel_of(1, form, bits, problem, lanes);
+  cudaError_t e = allow_smem(kernel, slot_of(1, form, bits, problem, lanes));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
@@ -2051,41 +2234,47 @@ int ga_epoch_launch(const void* x_in, const void* sel_in,
                            minimize, problem, bits);
   const Epoch E{islands, migrate_every, intervals, migrate, boundary,
                 (uint32_t*)send_elite, (int*)worst0};
-  Launch L(groups * islands, n, smem, stream, migrate ? islands : 0);
+  Launch L(groups * islands, threads_for(n, lanes), smem, stream,
+           migrate ? islands : 0);
   e = cudaLaunchKernelEx(&L.cfg, (EpochKernel)kernel, g, S, E);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // How many clusters of `islands` K2 blocks at (n, v, p, steps), population
-// layout `bits` and `problem`'s build the card holds at once
-// (cudaOccupancyMaxActiveClusters), into *out; returns the cudaError_t.
+// layout `bits`, `problem`'s build and `lanes` threads a pair the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out; returns the
+// cudaError_t.
 int ga_epoch_max_active_clusters(int n, int v, int p, int steps, int islands,
-                                 int bits, int problem, int* out) {
-  if (bad_layout(1, bits)) return (int)cudaErrorInvalidValue;
+                                 int bits, int problem, int lanes, int* out) {
+  if (bad_layout(1, bits) || bad_lanes(1, n, bits, problem, lanes))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_of(1, n, v, p, bits, problem);
   const int form = form_of(1, n, v, p, steps, bits, problem);
-  const void* kernel = kernel_of(1, form, bits, problem);
-  cudaError_t e = allow_smem(kernel, slot_of(1, form, bits, problem));
+  const void* kernel = kernel_of(1, form, bits, problem, lanes);
+  cudaError_t e = allow_smem(kernel, slot_of(1, form, bits, problem, lanes));
   if (e != cudaSuccess) return (int)e;
-  Launch L(islands, n, smem, nullptr, islands);
+  Launch L(islands, threads_for(n, lanes), smem, nullptr, islands);
   return (int)cudaOccupancyMaxActiveClusters(out, kernel, &L.cfg);
 }
 
 // Kernel `which` (0: K1, 1: K2, 2: K3) as compiled for `steps` clocks a
 // draw at population layout `bits` (16: K2 alone) for `problem` (its data
-// build for rastrigin_sr): registers a thread, local (spill and stack)
-// bytes a thread, and the blocks an SM holds at (n, v, p)
+// build for rastrigin_sr) with `lanes` threads a pair (2: K2's two-lane
+// form): registers a thread, local (spill and stack) bytes a thread, and
+// the blocks an SM holds at (n, v, p)
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int bits,
-                         int problem, int* regs, int* local_bytes,
+                         int problem, int lanes, int* regs, int* local_bytes,
                          int* blocks_per_sm) {
-  if (bad_layout(which, bits)) return (int)cudaErrorInvalidValue;
+  if (bad_layout(which, bits) || bad_lanes(which, n, bits, problem, lanes))
+    return (int)cudaErrorInvalidValue;
   const int form = form_of(which, n, v, p, steps, bits, problem);
-  const void* kernel = kernel_of(which, form, bits, problem);
+  const void* kernel = kernel_of(which, form, bits, problem, lanes);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_of(which, n, v, p, bits, problem);
-  cudaError_t e = allow_smem(kernel, slot_of(which, form, bits, problem));
+  cudaError_t e =
+      allow_smem(kernel, slot_of(which, form, bits, problem, lanes));
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kernel);
@@ -2093,7 +2282,7 @@ int ga_step_kernel_attrs(int which, int n, int v, int p, int steps, int bits,
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, threads_for(n), smem);
+      blocks_per_sm, kernel, threads_for(n, lanes), smem);
 }
 
 // K3: `groups` x `islands / tile` blocks, each walking `tile` islands for
@@ -2121,8 +2310,8 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
       wave_groups < 1)
     return (int)cudaErrorInvalidValue;
   const int form = form_of(2, n, v, p, steps, 32, problem);
-  const void* built = kernel_of(2, form, 32, problem);
-  cudaError_t e = allow_smem(built, slot_of(2, form, 32, problem));
+  const void* built = kernel_of(2, form, 32, problem, 1);
+  cudaError_t e = allow_smem(built, slot_of(2, form, 32, problem, 1));
   if (e != cudaSuccess) return (int)e;
   const Stack g = make_stack(x_in, sel_in, cross_in, mut_in, x_out, sel_out,
                              cross_out, mut_out, y_out, best_y, best_x, lo,
@@ -2137,7 +2326,8 @@ int ga_streamed_launch(const void* x_in, const void* sel_in,
     const Streamed T{groups, islands, tile, migrate_every, intervals,
                      migrate, splice, g0, (uint32_t*)elite, (int*)worst,
                      (unsigned*)arrived};
-    Launch L(count * (islands / tile), n, smem, stream, 0, ring);
+    Launch L(count * (islands / tile), threads_for(n, 1), smem, stream, 0,
+             ring);
     e = cudaLaunchKernelEx(&L.cfg, kernel, g, S, T);
     if (e != cudaSuccess) return (int)e;
   }
@@ -2152,12 +2342,12 @@ int ga_streamed_capacity(int n, int v, int p, int steps, int problem,
                          int* out) {
   const size_t smem = smem_of(2, n, v, p, 32, problem);
   const int form = form_of(2, n, v, p, steps, 32, problem);
-  const void* kernel = kernel_of(2, form, 32, problem);
-  cudaError_t e = allow_smem(kernel, slot_of(2, form, 32, problem));
+  const void* kernel = kernel_of(2, form, 32, problem, 1);
+  cudaError_t e = allow_smem(kernel, slot_of(2, form, 32, problem, 1));
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads_for(n), smem);
+      &per_sm, kernel, threads_for(n, 1), smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -2280,8 +2470,7 @@ int ga_best_launch(const void* x, const void* y, const void* best_y_in,
       slice < 1 || (long long)blocks * slice < n ||
       (long long)(blocks - 1) * slice >= n)
     return (int)cudaErrorInvalidValue;
-  Launch L(replicas * blocks, n, 0, stream, blocks);
-  L.cfg.blockDim = dim3(kBestThreads);
+  Launch L(replicas * blocks, kBestThreads, 0, stream, blocks);
   const cudaError_t e = cudaLaunchKernelEx(
       &L.cfg, ga_best, (const uint32_t*)x, (const float*)y,
       (const float*)best_y_in, (const uint32_t*)best_x_in,

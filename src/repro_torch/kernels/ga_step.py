@@ -55,7 +55,9 @@ global memory, and so do the rows below P where they do not fit; see the
 note at the top of the CUDA source), so (N, V) must fit `SMEM_LIMIT`, and
 their FFM stage is CUDA's own, for the built-in problems; at c <= 16 K2
 holds the population as 16-bit words (`population_bits`), half the
-population's bytes, so more of its blocks share an SM; K2's ring makes
+population's bytes, so more of its blocks share an SM, and there (without
+problem data, 32 <= N <= 512) may run one thread an individual rather than
+one a pair (`pair_threads`), twice the warps a block; K2's ring makes
 the islands of a group one thread-block cluster, at most `MAX_CLUSTER`;
 K3's ring needs every block of a launch co-resident (`streamed_capacity`).
 K1's global form keeps the state in global memory and takes any fitness
@@ -108,6 +110,7 @@ SMEM_LIMIT = 232448            # bytes of shared memory a Hopper block can use
 # mutation rows below P live, whatever limit a caller checks against
 _LAYOUT_LIMIT = SMEM_LIMIT
 MAX_CLUSTER = 8                # portable thread-block cluster size (K2 ring)
+MAX_THREADS = 512              # threads of an island block (kMaxThreads)
 
 # the built-in problems the kernel's FFM stage implements, by kernel id
 PROBLEM_IDS = {"F1": 0, "F2": 1, "F3": 2, "sphere": 3, "rastrigin": 4,
@@ -390,17 +393,17 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ga_step_launch.argtypes = [p] * 14 + [i] * 12 + [p]
     lib.ga_step_launch.restype = i
-    lib.ga_epoch_launch.argtypes = [p] * 16 + [i] * 16 + [p]
+    lib.ga_epoch_launch.argtypes = [p] * 16 + [i] * 17 + [p]
     lib.ga_epoch_launch.restype = i
     lib.ga_streamed_launch.argtypes = [p] * 17 + [i] * 17 + [p]
     lib.ga_streamed_launch.restype = i
     lib.ga_streamed_capacity.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.ga_streamed_capacity.restype = i
-    lib.ga_epoch_max_active_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+    lib.ga_epoch_max_active_clusters.argtypes = [i] * 8 + [ctypes.POINTER(i)]
     lib.ga_epoch_max_active_clusters.restype = i
-    lib.ga_step_kernel_attrs.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
+    lib.ga_step_kernel_attrs.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
     lib.ga_step_kernel_attrs.restype = i
-    lib.ga_step_threads.argtypes = [i]
+    lib.ga_step_threads.argtypes = [i, i]
     lib.ga_step_threads.restype = i
     lib.ga_step_smem_bytes.argtypes = [i, i, i]
     lib.ga_epoch_smem_bytes.argtypes = [i, i, i, i]
@@ -1015,54 +1018,91 @@ def epoch_mode_candidates(cfg: GAConfig, i_local: int, *, executor: str,
 
 
 def max_active_clusters(cfg: GAConfig, i_local: int,
-                        program: Optional[F.FitnessProgram] = None) -> int:
+                        program: Optional[F.FitnessProgram] = None,
+                        lanes: int = 1) -> int:
     """How many K2 clusters of `i_local` islands at (N, V), K2's layout
-    (`population_bits(cfg.c)`) and `program`'s build (its data in the
-    block) the card holds at once (cudaOccupancyMaxActiveClusters); needs
-    a card."""
+    (`population_bits(cfg.c)`), `program`'s build (its data in the block)
+    and `lanes` threads a pair (`pair_threads`) the card holds at once
+    (cudaOccupancyMaxActiveClusters); needs a card."""
     import ctypes
     lib = kernel_library()
     out = ctypes.c_int(0)
     _check_launch(lib.ga_epoch_max_active_clusters(
         cfg.n, cfg.v, min(cfg.p, cfg.n), cfg.steps_per_draw, i_local,
-        population_bits(cfg.c), _build_id(program), ctypes.byref(out)),
-        "ga_epoch occupancy")
+        population_bits(cfg.c), _build_id(program), lanes,
+        ctypes.byref(out)), "ga_epoch occupancy")
     return out.value
 
 
 def clusters_at_once(cfg: GAConfig, i_local: int, device,
-                     program: Optional[F.FitnessProgram] = None
-                     ) -> Optional[int]:
+                     program: Optional[F.FitnessProgram] = None,
+                     lanes: int = 1) -> Optional[int]:
     """`max_active_clusters` on a card `device`; None elsewhere (the plain
     version has no clusters)."""
     if device is None or torch.device(device).type != "cuda":
         return None
     with torch.cuda.device(torch.device(device)):
-        return max_active_clusters(cfg, i_local, program)
+        return max_active_clusters(cfg, i_local, program, lanes)
+
+
+def two_lanes_fit(cfg: GAConfig,
+                  program: Optional[F.FitnessProgram] = None) -> bool:
+    """Whether K2 has a two-lane build for `cfg` and `program`: its 16-bit
+    layout (`population_bits`) without problem data, and a block of one
+    thread an individual that every lane fills and `MAX_THREADS` holds,
+    32 <= N <= 512 (N a multiple of 32)."""
+    return (population_bits(cfg.c) == 16 and data_words(program) == 0
+            and 32 <= cfg.n <= MAX_THREADS and cfg.n % 32 == 0)
+
+
+def pair_threads(cfg: GAConfig, islands: int, device,
+                 program: Optional[F.FitnessProgram] = None) -> int:
+    """Threads a pair K2 runs with: 2 (one thread an individual, twice
+    the warps a block of pairs has) where `two_lanes_fit` and the card
+    `device` holds at least as many clusters of `islands` islands (at most
+    `MAX_CLUSTER`: the resident-free mode has no cluster, and this
+    stands for how many of its blocks co-reside) of the two-lane block at
+    once as of the pair block (`clusters_at_once`), else 1.  Off a card
+    there is no occupancy to weigh and `two_lanes_fit` decides (the plain
+    version runs either way)."""
+    if not two_lanes_fit(cfg, program):
+        return 1
+    k = min(islands, MAX_CLUSTER)
+    pair = clusters_at_once(cfg, k, device, program, 1)
+    two = clusters_at_once(cfg, k, device, program, 2)
+    return 2 if pair is None or two >= pair else 1
 
 
 KERNEL_IDS = {"ga_generation": 0, "ga_epoch": 1, "ga_streamed_epoch": 2}
 
 
 def kernel_attrs(name: str, cfg: GAConfig,
-                 program: Optional[F.FitnessProgram] = None
-                 ) -> Dict[str, int]:
+                 program: Optional[F.FitnessProgram] = None,
+                 lanes: Optional[int] = None) -> Dict[str, int]:
     """Kernel `name` as built for `cfg`'s clocks a draw (3 has its own
     build), its population layout (K2: `population_bits(cfg.c)`; K1, K3:
-    32) and `program`'s problem (rastrigin_sr's builds hold its data; every
-    other problem shares one build), at `cfg`'s block shape: registers and
-    local (spill and stack) bytes a thread (cudaFuncGetAttributes), the
-    blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the
-    threads a block, the layout's bits and the bytes a block; needs a
+    32), `program`'s problem (rastrigin_sr's builds hold its data; every
+    other problem shares one build) and its threads a pair (K2: `lanes`,
+    by default `pair_threads` at clusters of `MAX_CLUSTER`; K1, K3: 1), at
+    `cfg`'s block shape: registers and local (spill and stack) bytes a
+    thread (cudaFuncGetAttributes), the blocks an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the threads a block,
+    the threads a pair, the layout's bits and the bytes a block; needs a
     card."""
     import ctypes
     lib = kernel_library()
     bits = population_bits(cfg.c) if name == "ga_epoch" else 32
+    if name != "ga_epoch":
+        lanes = 1
+    elif lanes is None:
+        lanes = pair_threads(cfg, MAX_CLUSTER,
+                             torch.device("cuda", torch.cuda.current_device()),
+                             program)
     p = min(cfg.p, cfg.n)
     regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     _check_launch(lib.ga_step_kernel_attrs(
         KERNEL_IDS[name], cfg.n, cfg.v, p, cfg.steps_per_draw, bits,
-        _build_id(program), ctypes.byref(regs), ctypes.byref(local),
+        _build_id(program), lanes, ctypes.byref(regs), ctypes.byref(local),
         ctypes.byref(blocks)),
         f"{name} attributes")
     data = data_words(program)
@@ -1070,8 +1110,9 @@ def kernel_attrs(name: str, cfg: GAConfig,
             else epoch_smem_bytes(cfg.n, cfg.v, p, bits, data))
     return {"registers": regs.value, "local_bytes": local.value,
             "blocks_per_sm": blocks.value,
-            "threads": lib.ga_step_threads(cfg.n),
-            "population_bits": bits, "smem_bytes": smem}
+            "threads": lib.ga_step_threads(cfg.n, lanes),
+            "pair_threads": lanes, "population_bits": bits,
+            "smem_bytes": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -1138,14 +1179,18 @@ def _check_epoch(name, x, sel, cross, mut, cfg, program, migrate_every,
 def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
                     program: F.FitnessProgram, migrate_every: int,
                     intervals: int = 1, boundary: bool = False,
-                    migrate: bool = True) -> Tuple[torch.Tensor, ...]:
+                    migrate: bool = True, lanes: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, ...]:
     """Resident epochs over replica-stacked island groups (see the module
     docstring for the contract).  `migrate=False` is the resident-free mode
     (no ring, no cluster); `boundary=True` needs the ring and one interval.
     With the ring, the I islands of a group form one thread-block cluster,
     so I <= MAX_CLUSTER.  At c <= 16 the kernel holds the population as
     16-bit words (`population_bits`), which takes x's words below 2^16, as
-    every producer in the port makes them."""
+    every producer in the port makes them.  `lanes`, the threads a pair (1,
+    or 2 where `two_lanes_fit`), picks the build, by default by
+    `pair_threads` (a plan passes its own); the outputs are the same bit
+    for bit."""
     bits = population_bits(cfg.c)
     _check_epoch("ga_epoch_kernel", x, sel, cross, mut, cfg, program,
                  migrate_every, intervals, bits)
@@ -1158,6 +1203,12 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             f"the ring of {i_islands} islands would be one thread-block "
             f"cluster past the portable size of {MAX_CLUSTER}; run the "
             "streamed or gridded plan")
+    if lanes not in (None, 1, 2) or (
+            lanes == 2 and not two_lanes_fit(cfg, program)):
+        raise ValueError(
+            f"lanes={lanes}: K2 runs 1 thread a pair, or 2 only in its "
+            "16-bit build without problem data at 32 <= N <= "
+            f"{MAX_THREADS}")
     if x.device.type == "cpu":
         return ga_epoch_plain(x, sel, cross, mut, cfg=cfg, program=program,
                               migrate_every=migrate_every,
@@ -1166,6 +1217,8 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
     x, sel, cross, mut = (t.contiguous() for t in (x, sel, cross, mut))
     n, v = cfg.n, cfg.v
     dev = x.device
+    if lanes is None:
+        lanes = pair_threads(cfg, i_islands, dev, program)
     lo, span = program.device_consts(dev)
     outs = [torch.empty_like(t) for t in (x, sel, cross, mut)]
     y = torch.empty((g_grid, i_islands, n), dtype=torch.float32, device=dev)
@@ -1187,7 +1240,7 @@ def ga_epoch_kernel(x, sel, cross, mut, *, cfg: GAConfig,
             cfg.cut_bits, min(cfg.p, n), cfg.steps_per_draw,
             int(cfg.minimize),
             problem_id(program), migrate_every, intervals, int(migrate),
-            int(boundary), bits, stream)
+            int(boundary), bits, lanes, stream)
     _check_launch(err, "ga_epoch")
     LAUNCHES["ga_epoch"] += 1
     if boundary:

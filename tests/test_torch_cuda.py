@@ -532,6 +532,91 @@ def test_island_cell_clusters_run_in_one_wave(cuda_device):
     assert K.max_active_clusters(wide, 8) < 51
 
 
+# K2's two-lane form (one thread an individual; 16-bit words, no data, 32
+# <= N <= 512): (problem, N, mutation rate, clocks a draw, islands, groups,
+# generations an interval): the island cell (N=256, V=30, P=6, 51 x 8
+# islands, intervals of 16), a block of two warps and one of 512 threads,
+# V odd (the last variable's cut clocked by the even lane alone), the
+# mutation rows past 32 (P=52: rows in two warps; P=N: every lane's), and
+# two clocks a draw (the run-time build)
+TWO_LANE_CASES = [("rastrigin:30", 256, 0.02, 3, 8, 51, 16),
+                  ("rastrigin:30", 64, 0.02, 3, 4, 3, 3),
+                  ("rastrigin:30", 512, 0.02, 3, 8, 2, 3),
+                  ("rastrigin:7", 128, 0.02, 3, 4, 3, 3),
+                  ("sphere:1", 64, 0.02, 3, 4, 3, 3),
+                  ("rastrigin:30", 256, 0.2, 3, 8, 2, 3),
+                  ("ackley:5", 64, 1.0, 3, 4, 3, 3),
+                  ("rastrigin:30", 256, 0.02, 2, 8, 2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ring", "free", "boundary"])
+@pytest.mark.parametrize("minimize", [True, False])
+@pytest.mark.parametrize("problem,n,rate,steps,islands,groups,every",
+                         TWO_LANE_CASES)
+def test_two_lane_epoch_matches_plain(cuda_device, problem, n, rate, steps,
+                                      islands, groups, every, minimize,
+                                      mode):
+    """K2's two-lane form against `ga_epoch_plain` and against its pair
+    form, all outputs bit for bit, where the rule picks it.  (K2 always
+    folds its best, so `track_best` has no off state here; K1, which has
+    one, keeps one lane a pair.)"""
+    prog = TF.compile_program(problem=problem, bits_per_var=16)
+    cfg = TG.GAConfig(n=n, c=16, v=prog.n_vars, mutation_rate=rate, seed=8,
+                      minimize=minimize, steps_per_draw=steps, mode="arith",
+                      sel_lane="gather")
+    assert rate < 0.1 or min(cfg.p, n) > 32
+    assert K.pair_threads(cfg, islands, cuda_device, prog) == 2
+    args = _island_groups(cfg, groups, islands, cuda_device)
+    kw = dict(cfg=cfg, program=prog, migrate_every=every,
+              intervals=1 if mode == "boundary" else 2,
+              boundary=mode == "boundary", migrate=mode != "free")
+    before = K.LAUNCHES["ga_epoch"]
+    two = K.ga_epoch_kernel(*args, lanes=2, **kw)
+    one = K.ga_epoch_kernel(*args, lanes=1, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ga_epoch"] == before + 2
+    want = K.ga_epoch_plain(*args, **kw)
+    assert len(two) == len(want) == (9 if mode == "boundary" else 7)
+    for i, (a, b, c) in enumerate(zip(two, one, want)):
+        assert a.shape == c.shape, i
+        assert torch.equal(a, c), f"output {i}"
+        assert torch.equal(a, b), f"output {i} against the pair form"
+
+
+@pytest.mark.cuda
+def test_two_lane_kernel_attributes_at_the_island_cell(cuda_device):
+    """At the island cell (N=256, V=30, P=6, c=16) K2 takes its two-lane
+    form: 256 threads, at most 64 registers, no spills (its local bytes
+    are the pair form's, the 32-B stack of cosf's slow path), four blocks
+    an SM (32 warps) and the 51 clusters of 8 at once.  K1, K3, K2's pair
+    form and its rastrigin_sr build keep one thread a pair with their
+    threads, registers and blocks an SM."""
+    cfg = TG.GAConfig(n=256, c=16, v=30, mutation_rate=0.02, mode="arith",
+                      sel_lane="gather")
+    attrs = K.kernel_attrs("ga_epoch", cfg)
+    assert attrs["threads"] == 256 and attrs["pair_threads"] == 2, attrs
+    assert attrs["registers"] <= 64, attrs
+    assert attrs["local_bytes"] == K.kernel_attrs(
+        "ga_epoch", cfg, lanes=1)["local_bytes"] == 32, attrs
+    assert attrs["blocks_per_sm"] == 4 and attrs["smem_bytes"] == 51900
+    assert K.clusters_at_once(cfg, 8, cuda_device, None, 2) >= 51
+    assert K.clusters_at_once(cfg, 8, cuda_device, None, 2) >= \
+        K.clusters_at_once(cfg, 8, cuda_device, None, 1)
+    prog = TF.compile_program(problem="rastrigin_sr:30", bits_per_var=16)
+    # (kernel, program, lanes): threads, registers, blocks an SM (the
+    # rule's pick where lanes is None)
+    kept = [("ga_generation", None, None, 128, 64, 2),
+            ("ga_streamed_epoch", None, None, 128, 64, 2),
+            ("ga_epoch", None, 1, 128, 64, 4),
+            ("ga_epoch", prog, None, 128, 128, 4)]
+    for name, pr, lanes, threads, regs, blocks in kept:
+        a = K.kernel_attrs(name, cfg, pr, lanes)
+        assert a["pair_threads"] == 1 and a["threads"] == threads, (name, a)
+        assert a["registers"] == regs and a["blocks_per_sm"] == blocks, \
+            (name, a)
+
+
 def _sr_case(v, n, c, minimize=True):
     prog = TF.compile_program(problem=f"rastrigin_sr:{v}", bits_per_var=c)
     cfg = TG.GAConfig(n=n, c=c, v=v, mutation_rate=0.02, seed=5,

@@ -72,9 +72,10 @@ def test_segment_spans_follow_the_chunks(backend, plan, launches):
     segs = names["topology.segment"]
     assert [r["run"] for r in segs] == [(e, 1), (e, 2)]
     assert [ids[r["parent"]]["name"] for r in segs] == ["engine.chunk"] * 2
-    # K2 holds c = 10 words in 16 bits; the plain islands backend runs no
-    # kernel and has no layout
-    layout = {"population_bits": 16} if plan == "resident" else {}
+    # K2 holds c = 10 words in 16 bits, at N = 16 one thread a pair; the
+    # plain islands backend runs no kernel and has no layout
+    layout = ({"population_bits": 16, "pair_threads": 1}
+              if plan == "resident" else {})
     for seg, tele in zip(segs, teles):
         topo = tele["telemetry"].topology
         assert seg["attrs"] == {"plan": plan, "intervals": 4,
@@ -111,10 +112,10 @@ def test_without_a_ring_the_segment_counts_no_migrations():
     res = ga.solve(spec, "fused-islands", options=CPU)
     (seg,) = _by_name(TR.records())["topology.segment"]
     assert res.telemetry.topology.migrations == 0
-    # gridded: K1's one-block form, 32-bit words
+    # gridded: K1's one-block form, 32-bit words, one thread a pair
     assert seg["attrs"] == {"plan": res.telemetry.plan.mode,
-                            "population_bits": 32, "intervals": 8,
-                            "migrations": 0}
+                            "population_bits": 32, "pair_threads": 1,
+                            "intervals": 8, "migrations": 0}
 
 
 def test_a_mesh_records_the_spans_without_timing_events():
@@ -126,8 +127,8 @@ def test_a_mesh_records_the_spans_without_timing_events():
     (seg,) = names["topology.segment"]
     assert res.telemetry.plan.mode == "resident-sharded"
     assert seg["attrs"] == {"plan": "resident-sharded",
-                            "population_bits": 16, "intervals": 8,
-                            "migrations": 8}
+                            "population_bits": 16, "pair_threads": 1,
+                            "intervals": 8, "migrations": 8}
     assert len(names["topology.launch"]) == res.telemetry.topology.launches
     assert len(names["segment.result"]) == 1
     (fold,) = names["segment.fold"]
@@ -163,6 +164,66 @@ def test_segment_reports_the_layout_and_cluster_waves(monkeypatch, bits,
     ga.solve(spec, "fused-islands", options=CPU)
     (seg,) = _by_name(TR.records())["topology.segment"]
     assert "cluster_waves" not in seg["attrs"]
+
+
+# (c, N, clusters of the pair block, of the two-lane block at once, the
+# threads a pair): the two-lane form where K2's 16-bit block without data
+# has one thread an individual at 32 <= N <= 512 and the card holds as
+# many of its clusters as of the pair block's
+LANE_CASES = [(10, 64, 62, 62, 2), (16, 256, 62, 62, 2),
+              (10, 64, None, None, 2), (10, 64, 62, 61, 1),
+              (17, 64, 62, 62, 1), (10, 16, 62, 62, 1), (10, 1024, 62, 62, 1)]
+
+
+@pytest.mark.parametrize("c,n,pair,two,lanes", LANE_CASES)
+def test_resident_plan_and_segment_carry_pair_threads(monkeypatch, c, n,
+                                                     pair, two, lanes):
+    """The resident plan records K2's threads a pair (`pair_threads`), the
+    mapping `kernels.ga_step.pair_threads` picks from the shape and the
+    clusters at once of either block (pretended here, as the CPU has none;
+    without a count the shape decides), in the telemetry and on every
+    `topology.segment`; the run is the same bit for bit under either."""
+    spec = dataclasses.replace(SPEC, bits_per_var=c, n=n,
+                               generations=8, n_repeats=1)
+    monkeypatch.setattr(K, "clusters_at_once",
+                        lambda cfg, i_local, device, program=None, lanes=1:
+                        pair if lanes == 1 else two)
+    TR.enable()
+    res = ga.solve(spec, "fused-islands", options=CPU)
+    (seg,) = _by_name(TR.records())["topology.segment"]
+    plan = res.telemetry.plan
+    assert plan.mode == "resident"
+    assert plan.pair_threads == seg["attrs"]["pair_threads"] == lanes
+    assert plan.clusters_at_once == (pair if lanes == 1 else two)
+    ref = ga.solve(spec, "islands", options=CPU)
+    for a, b in zip(_words(res.state), _words(ref.state)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_kernel_takes_two_lanes_only_where_they_fit():
+    """`ga_epoch_kernel` refuses a second lane where K2 has no two-lane
+    build (32-bit words, problem data, N past a block or below a warp) on
+    every device, as the card would, and runs either mapping to the same
+    outputs off the card."""
+    cfg = SPEC.ga_config()
+    for changes in (dict(c=17), dict(n=16), dict(n=1024)):
+        assert not K.two_lanes_fit(dataclasses.replace(cfg, **changes))
+    sized = dataclasses.replace(SPEC, n=64)
+    prog, cfg = sized.program(), sized.ga_config()
+    assert K.two_lanes_fit(cfg) and not K.two_lanes_fit(
+        cfg, ga.GASpec(problem="rastrigin_sr:3", n=64, bits_per_var=10,
+                       mode="arith").program())
+    # [R, I, ...]: 2 groups of 4 islands
+    g = list(ga.Engine(sized, "fused-islands", options=CPU).init_state()[:4])
+    kw = dict(cfg=cfg, program=prog, migrate_every=2, intervals=2)
+    one, two = (K.ga_epoch_kernel(*g, lanes=k, **kw) for k in (1, 2))
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="lanes=2"):
+        K.ga_epoch_kernel(*g, lanes=2,
+                          **dict(kw, cfg=dataclasses.replace(cfg, c=17)))
+    with pytest.raises(ValueError, match="lanes=3"):
+        K.ga_epoch_kernel(*g, lanes=3, **kw)
 
 
 def _words(state):
